@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (one nvcc call), holds each kernel
-against its plain PyTorch version at the main path's shapes, gates the codes
-of the three golden configs against tests/golden/bench_tokens.npz, drives
-the small-320 codec round trip (encode_infer -> codes_to_features -> decode)
-through the WavTokenizer entry points on the card and checks it against the
-same on the CPU, shows that the round trip launched every kernel, and times
-the stages and the kernels at batch 128 x 3 s.  Weights are random, drawn
-from seed 0 by the port's numpy init.
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
+together), holds each kernel against its plain PyTorch version at the main
+path's shapes, gates the codes of the three golden configs against
+tests/golden/bench_tokens.npz, drives the small-320 codec round trip
+(encode_infer -> codes_to_features -> decode) through the WavTokenizer entry
+points on the card and checks it against the same on the CPU, shows that the
+round trip launched every kernel, and times the stages and the kernels at
+batch 128 x 3 s.  Then it serves the model through the port's engine and
+HTTP server (concurrent requests, answers held against direct calls), and
+runs the long-audio path over four long streams; each of those paths, too,
+must launch every kernel.  Weights are random, drawn from seed 0 by the
+port's numpy init.
 
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
@@ -31,6 +35,9 @@ import torch
 H100_FP32_FLOPS = 67e12      # dense fp32 outside the tensor cores (SXM data sheet)
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor cores
 H100_BYTES = 3.35e12         # HBM3
+# Encoder layers 0-6 of small-320, multiply-adds per audio sample: conv0 224,
+# resblock 32 3072, down k4 s2 4096, resblock 64 6144, down k8 s4 8192.
+FRONT_MACS_PER_SAMPLE = 224 + 3072 + 4096 + 6144 + 8192
 TIMING_BATCH = 128
 TIMING_SECONDS = 3.0
 
@@ -71,6 +78,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_counts(K) -> dict:
+    return {"vq_nearest": K.vq_nearest.launches,
+            "convnext_block": K.convnext_block.launches,
+            "encoder_front": K.encoder_front.launches}
+
+
 def vq_distance_gap(x, embed, a, b) -> float:
     """Largest |d(x, e_a) - d(x, e_b)| in float64 over rows where the codes
     differ (0.0 when they agree), and raise unless every such row is a
@@ -86,6 +99,145 @@ def vq_distance_gap(x, embed, a, b) -> float:
     return float(gap.max())
 
 
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# Served and chunked audio against the direct calls on the same card: the same
+# kernels and the same fp32 cuDNN settings; only the batch a row rides in
+# differs.  That can move cuDNN's fp32 sums (another algorithm for another
+# batch) by ~1e-7 relative and at worst flip the bf16 rounding of single
+# ConvNeXt operands (one step, 2^-9, averaged over 768- and 2304-term sums).
+# The card against the CPU, which differs far more, measured a 9.5e-5
+# waveform rel-max in phase 5; 2e-3 sits well above both.
+SAME_CARD_WAVE_TOL = 2e-3
+
+
+def serving_phase(model, spec, K, kind: str) -> dict:
+    """Phase 7: the random small-320 model behind the port's HTTP server on
+    127.0.0.1 (port 0, a thread), concurrent requests, every answer held
+    against a direct call."""
+    import concurrent.futures as cf
+    import http.client
+    import threading
+
+    from wavtokenizer_tpu_torch.api.engine import EngineConfig, ServingEngine
+    from wavtokenizer_tpu_torch.tools import serve
+    from wavtokenizer_tpu_torch.utils.golden import max_flips
+
+    sr = spec.sample_rate
+    eng = ServingEngine(model, EngineConfig(batch_sizes=(1, 8, 32), clip_seconds=(3.0,)))
+    httpd = serve.build_server("127.0.0.1", 0, eng, kind)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", path, body, {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out = r.status, json.loads(r.read()), time.perf_counter() - t0
+        conn.close()
+        return out
+
+    try:
+        eng.warmup()
+        rng = np.random.default_rng(7)
+        lengths = [3 * sr] * 64 + [3 * sr - 1, int(1.37 * sr), 2 * sr + 7, sr + 1]
+        clips = [(rng.normal(size=n) * 0.1).astype(np.float32) for n in lengths]
+        _, codes_full = model.encode_infer(np.stack(clips[:16]))
+        detok = [codes_full[0, i].cpu().numpy() for i in range(16)]
+        bodies = ([("/encode", json.dumps({"audio": serve.encode_tensor(c)})) for c in clips]
+                  + [("/detokenize", json.dumps({"codes": serve.encode_tensor(c)}))
+                     for c in detok])
+        bad = [("/encode", json.dumps({"audio": serve.encode_tensor(
+                   np.zeros(4 * sr, np.float32))})),
+               ("/encode", "{\"audio\": [1, 2")]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=32) as pool:
+            results = list(pool.map(lambda b: post(*b), bodies + bad))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts(K)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+        # The same requests straight to the engine, without HTTP and JSON:
+        # the engine layer's own rate.
+        t0 = time.perf_counter()
+        futs = ([eng.submit("encode", c) for c in clips]
+                + [eng.submit("detokenize", c) for c in detok])
+        for f in futs:
+            f.result(600)
+        engine_wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        eng.close()
+
+    check(all(v > 0 for v in launches.values()), f"serving launches {launches}")
+    good, bad_res = results[:len(bodies)], results[len(bodies):]
+    check([r[0] for r in bad_res] == [400, 400],
+          f"bad requests answered {[r[0] for r in bad_res]}, expected 400 and 400")
+    check(all(r[0] == 200 for r in good),
+          f"failed requests: {[(r[0], r[1].get('error')) for r in good if r[0] != 200]}")
+    # Every served code row against a direct encode of that clip.
+    flips = n_ids = 0
+    for clip, (_, out, _) in zip(clips, good):
+        served = serve.decode_tensor(out["codes"])
+        want = model.encode_infer(clip[None])[1][0, 0].cpu().numpy()
+        flips += int((served != want).sum())
+        n_ids += want.size
+    check(flips <= max_flips(n_ids), f"served codes: {flips} of {n_ids} differ")
+    want_wav = model.decode(model.codes_to_features(codes_full), 0)
+    wave_rel = 0.0
+    for i, (_, out, _) in enumerate(good[len(clips):]):
+        served = torch.as_tensor(serve.decode_tensor(out["audio"])).to(want_wav.device)
+        wave_rel = max(wave_rel, rel_max(served, want_wav[i]))
+    check(wave_rel < SAME_CARD_WAVE_TOL, f"served audio rel-max err {wave_rel:.3g}")
+    lat = np.array([r[2] for r in good]) * 1e3
+    audio_s = (sum(lengths) + sum(len(c) for c in detok) * spec.hop_length) / sr
+    return {"requests": len(good), "wall_s": wall, "req_per_s": len(good) / wall,
+            "audio_s_per_s": audio_s / wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "occupancy": stats["mean_batch_occupancy"], "batches": stats["batches"],
+            "engine_req_per_s": len(good) / engine_wall,
+            "engine_audio_s_per_s": audio_s / engine_wall,
+            "flips": flips, "n_ids": n_ids, "wave_rel": wave_rel, "launches": launches}
+
+
+def long_audio_phase(model, spec, K) -> dict:
+    """Phase 8: reconstruct_long_batch over four long streams against
+    reconstruct_long per stream."""
+    from wavtokenizer_tpu_torch.api.streaming import reconstruct_long, reconstruct_long_batch
+
+    sr = spec.sample_rate
+    rng = np.random.default_rng(8)
+    seconds = (10.0, 25.0, 37.3, 60.0)
+    audios = [(rng.normal(size=int(s * sr)) * 0.1).astype(np.float32) for s in seconds]
+    reconstruct_long_batch(model, audios[:1], batch_size=128)       # warm up
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = reconstruct_long_batch(model, audios, batch_size=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(K)
+    check(all(v > 0 for v in launches.values()), f"long-audio launches {launches}")
+    rels = []
+    for y, out in zip(audios, outs):
+        want = reconstruct_long(model, y)
+        check(out.shape == want.shape == (len(y),) and bool(torch.isfinite(out).all()),
+              f"long audio: shape {tuple(out.shape)} or non-finite values")
+        rels.append(rel_max(out, want))
+    check(max(rels) < SAME_CARD_WAVE_TOL, f"long audio rel-max errs {rels}")
+    return {"seconds": seconds, "wall_s": wall, "rtf": sum(seconds) / wall, "rels": rels,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -93,6 +245,7 @@ def main() -> int:
     try:
         from wavtokenizer_tpu_torch import WavTokenizer, init_wavtokenizer
         from wavtokenizer_tpu_torch.models import quantize, seanet, vocos
+        from wavtokenizer_tpu_torch.models.seanet import encoder_layer_specs
         from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
         from wavtokenizer_tpu_torch.ops import kernels as K
         from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
@@ -161,18 +314,50 @@ def main() -> int:
             f"max abs err {err:.3g}, over max |out| {rel_out:.3g}, "
             f"over max |out - x| {rel_update:.3g}")
 
+    # Kernel 3 at the main path's lengths (the golden small-320 and music-16k
+    # clips), the shortest length the gate admits, and a length that leaves
+    # every launch a partial last tile (T/2 = 65*63 + 17, T/8 = 1028).
+    enc_p, enc_specs = model.params["encoder"], encoder_layer_specs(small320.seanet)
+    front_err = 0.0
+    clips = [torch.as_tensor(golden_clip(s))[:, :, None]
+             for s in (small320, golden_specs()["music16k"])]
+    clips += [torch.randn(2, T, 1, generator=gen) * 0.1 for T in (1024, 8224)]
+    for a in clips:
+        a = a.to(dev)
+        B, T, _ = a.shape
+        with full_fp32():
+            got = K.encoder_front(a, enc_p, enc_specs)
+            want = K.encoder_front_reference(a, enc_p, enc_specs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        front_err = max(front_err, err)
+        check(rel < 1e-5, f"encoder_front B={B} T={T}: rel err {rel:.3g}")
+        log(f"[3 parity] encoder_front B={B} T={T}: max abs err {err:.3g}, "
+            f"over max |out| {rel:.3g} (limit 1e-5)")
+    before = K.encoder_front.launches
+    with torch.inference_mode(), full_fp32():
+        seanet.seanet_encode(enc_p, small320.seanet, torch.zeros(2, 72004, 1, device=dev))
+    check(K.encoder_front.launches == before, "encoder_front launched for T % 8 != 0")
+    log("[3 parity] encoder_front: not launched for T=72004 (T % 8 != 0)")
+
     # -- 4. golden gate on the card ---------------------------------------
     golden = load_golden()
     for label, spec in golden_specs().items():
         m = model if label == "small320" else WavTokenizer.from_jax_params(
             init_wavtokenizer(spec, seed=0, random_codebook=True), spec, device="cuda")
+        before = K.encoder_front.launches
         _, codes = m.encode_infer(golden_clip(spec))
+        front = K.encoder_front.launches - before
+        check(front == (0 if label == "small600" else 1),
+              f"{label}: encoder_front launched {front} times")
         want = golden[label]
         check(tuple(codes.shape) == want.shape, f"{label}: codes shape {tuple(codes.shape)}")
         flips = int((codes.cpu().numpy() != want).sum())
         check(flips <= max_flips(want.size), f"{label}: {flips} flips")
         log(f"[4 golden] {label}: {flips} of {want.size} ids differ from "
-            f"tests/golden/bench_tokens.npz (limit {max_flips(want.size)})")
+            f"tests/golden/bench_tokens.npz (limit {max_flips(want.size)}); "
+            f"front kernel {'launched' if front else 'not launched (geometry)'}")
         del m
 
     # -- 5. the main path on the card, against the CPU --------------------
@@ -181,10 +366,9 @@ def main() -> int:
     feats, codes = model.encode_infer(clip)
     wave = model.decode(model.codes_to_features(codes), bandwidth_id=0)
     torch.cuda.synchronize()
-    launches = {"vq_nearest": K.vq_nearest.launches,
-                "convnext_block": K.convnext_block.launches}
+    launches = launch_counts(K)
     n_blocks = small320.backbone.num_layers
-    check(launches == {"vq_nearest": 1, "convnext_block": n_blocks},
+    check(launches == {"vq_nearest": 1, "convnext_block": n_blocks, "encoder_front": 1},
           f"kernel launches on the main path: {launches}")
     check(tuple(wave.shape) == clip.shape and bool(torch.isfinite(wave).all()),
           f"waveform shape {tuple(wave.shape)} or non-finite values")
@@ -220,12 +404,18 @@ def main() -> int:
             with full_fp32():
                 seanet.seanet_encode(p["encoder"], small320.seanet, audio[:, :, None])
 
+        def enc_plain_front():
+            with full_fp32():
+                seanet.seanet_encode(p["encoder"], small320.seanet, audio[:, :, None],
+                                     front=False)
+
         def vq():
             with full_fp32():
                 quantize.vq_infer(p["quantizer"], emb)
 
         stages = {
             "encoder": cuda_ms(enc, 3),
+            "encoder (front=False)": cuda_ms(enc_plain_front, 3),
             "vq": cuda_ms(vq, 10),
             "backbone": cuda_ms(lambda: vocos.vocos_backbone(
                 p["backbone"], small320.backbone, q, bandwidth_id=0), 5),
@@ -264,10 +454,45 @@ def main() -> int:
         hb = torch.randn(M, C, generator=gen).to(dev, torch.bfloat16)
         gb = torch.randn(M, I, generator=gen).to(dev, torch.bfloat16)
         gemm_ms = cuda_ms(lambda: (hb @ block["w1"], gb @ block["w2"]), 20)
+        # Kernel 3 at B=128 x 3 s, against its plain version (cuDNN fp32).
+        a3 = audio[:, :, None]
+        with full_fp32():
+            front_ms = cuda_ms(lambda: K.encoder_front(a3, enc_p, enc_specs), 5)
+            front_plain = cuda_ms(lambda: K.encoder_front_reference(a3, enc_p, enc_specs), 5)
+        S = audio.numel()
+        front_ops_s = 2 * FRONT_MACS_PER_SAMPLE * S / H100_FP32_FLOPS
+        n_weights = sum(t.numel() for t in enc_p[0]["front"].values())
+        front_bytes_s = (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / H100_BYTES
+        front_bound = max(front_ops_s, front_bytes_s) * 1e3
+        front_by = "operations" if front_ops_s > front_bytes_s else "bytes"
+    log(f"[6 timing] encoder_front B={TIMING_BATCH} x {audio.shape[1]}: kernel "
+        f"{front_ms:.3f} ms, plain {front_plain:.3f} ms, bound {front_bound:.3f} ms "
+        f"({front_by}); library: none (no single PyTorch call); card {card}")
     log(f"[6 timing] vq_nearest N={N}: kernel {vq_ms:.3f} ms, plain {vq_plain:.3f} ms, "
         f"bound {vq_bound:.3f} ms ({vq_by}); convnext_block M={M}: kernel {cnx_ms:.3f} ms, "
         f"plain {cnx_plain:.3f} ms, bound {cnx_bound:.3f} ms; cuBLAS bf16 GEMM pair "
         f"alone {gemm_ms:.3f} ms; card {card}")
+
+    # -- 7. serving ------------------------------------------------------
+    sv = serving_phase(model, small320, K, kind)
+    log(f"[7 serving] {sv['requests']} requests (68 encode, 16 detokenize) in "
+        f"{sv['wall_s']:.3f} s: {sv['req_per_s']:.1f} requests/s, "
+        f"{sv['audio_s_per_s']:.1f} audio-s/s, latency p50 {sv['p50_ms']:.1f} ms "
+        f"p99 {sv['p99_ms']:.1f} ms, mean batch occupancy {sv['occupancy']} over "
+        f"{sv['batches']} batches (client threads in this process); the same requests "
+        f"straight to the engine: {sv['engine_req_per_s']:.1f} requests/s, "
+        f"{sv['engine_audio_s_per_s']:.1f} audio-s/s; card {card}")
+    log(f"[7 serving] codes: {sv['flips']} of {sv['n_ids']} ids differ from direct "
+        f"encode_infer (limit {max_flips(sv['n_ids'])}); detokenized audio rel-max err "
+        f"{sv['wave_rel']:.3g} against direct decode (limit {SAME_CARD_WAVE_TOL}); "
+        f"4 s clip and malformed body answered 400; launches {sv['launches']}")
+
+    # -- 8. long audio ----------------------------------------------------
+    la = long_audio_phase(model, small320, K)
+    log(f"[8 long audio] reconstruct_long_batch of {la['seconds']} s in "
+        f"{la['wall_s']:.3f} s = {la['rtf']:.1f}x real time; rel-max err against "
+        f"reconstruct_long per stream {max(la['rels']):.3g} (limit {SAME_CARD_WAVE_TOL}); "
+        f"launches {la['launches']}; card {card}")
 
     rows = [
         {"name": "vq_nearest", "route": "cuda",
@@ -282,6 +507,12 @@ def main() -> int:
          "launches": launches["convnext_block"], "max_abs_err": cnx_err, "ms": cnx_ms,
          "plain_ms": cnx_plain, "bound_ms": cnx_bound,
          "bound_by": "operations" if ops_s > bytes_s else "bytes", "library_ms": None},
+        {"name": "encoder_front", "route": "cuda",
+         "source": "wavtokenizer_tpu_torch/csrc/encoder_front.cu",
+         "replaces": "wavtokenizer_tpu/ops/encoder_front.py:371",
+         "launches": launches["encoder_front"], "max_abs_err": front_err, "ms": front_ms,
+         "plain_ms": front_plain, "bound_ms": front_bound, "bound_by": front_by,
+         "library_ms": None},
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

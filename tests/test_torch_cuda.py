@@ -6,7 +6,8 @@ also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Shapes are deliberately off the kernels' tiles (rows, codes and depth not
-multiples of 64/16/128) so the masked edges are exercised.
+multiples of 64/16/128; lengths that leave the encoder front's last tiles
+partial) so the masked edges are exercised.
 """
 
 import pytest
@@ -74,3 +75,54 @@ def test_convnext_block_kernel_refuses_fp32_weights(cuda):
     with pytest.raises(ValueError, match="w1"):
         K.convnext_block(z(1, 4, C), z(7, C), z(C), z(C), z(C), z(C, I), z(I), z(I, C),
                          z(C), z(C))
+
+
+@pytest.fixture(scope="module")
+def small320_encoder():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from wavtokenizer_tpu_torch import WavTokenizer, WavTokenizerSpec, init_wavtokenizer
+    from wavtokenizer_tpu_torch.models.seanet import encoder_layer_specs
+    spec = WavTokenizerSpec()
+    model = WavTokenizer.from_jax_params(
+        init_wavtokenizer(spec, seed=0, random_codebook=True), spec, device="cuda")
+    return model.params["encoder"], encoder_layer_specs(spec.seanet), spec
+
+
+# T=1024 is the shortest length the gate admits; T=8224 leaves every launch
+# a partial last tile (T/2 = 65*63 + 17 = 64*64 + 16, T/8 = 1028 frames).
+@pytest.mark.parametrize("B,T", [(2, 1024), (2, 8224), (1, 6144), (3, 72000)])
+def test_encoder_front_kernel_matches_plain(small320_encoder, B, T):
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    params, specs, _ = small320_encoder
+    g = torch.Generator().manual_seed(T)
+    audio = (torch.randn(B, T, 1, generator=g) * 0.1).cuda()
+    before = K.encoder_front.launches
+    with full_fp32():
+        got = K.encoder_front(audio, params, specs)
+        want = K.encoder_front_reference(audio, params, specs)
+    torch.cuda.synchronize()
+    assert K.encoder_front.launches == before + 1
+    assert got.shape == want.shape == (B, T // 8, 128)
+    # fp32 on both sides (TF32 off), other summation orders.
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < 1e-5, rel
+
+
+def test_encoder_front_gate_keeps_other_lengths_and_geometries_plain(small320_encoder):
+    from wavtokenizer_tpu_torch import WavTokenizer, init_wavtokenizer
+    from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.utils.golden import golden_specs
+    params, _, spec = small320_encoder
+    before = K.encoder_front.launches
+    with full_fp32():
+        seanet_encode(params, spec.seanet, torch.zeros(1, 2052, 1, device="cuda"))
+        spec600 = golden_specs()["small600"]
+        p600 = WavTokenizer.from_jax_params(init_wavtokenizer(spec600, seed=0), spec600,
+                                            device="cuda").params["encoder"]
+        assert "front" not in p600[0]
+        seanet_encode(p600, spec600.seanet, torch.zeros(1, 4800, 1, device="cuda"))
+        seanet_encode(params, spec.seanet, torch.zeros(1, 4800, 1, device="cuda"))
+    torch.cuda.synchronize()
+    assert K.encoder_front.launches == before + 1

@@ -2,28 +2,34 @@
 
 Port of ``wavtokenizer_tpu/api/pretrained.py`` (ref decoder/pretrained.py):
 
-    wt = WavTokenizer.from_state_dict(state_dict, spec)          # or
+    wt = WavTokenizer.from_pretrained0802(config_path, model_path)  # or
+    wt = WavTokenizer.from_state_dict(state_dict, spec)              # or
     wt = WavTokenizer.from_jax_params(init_wavtokenizer(spec), spec)
     features, codes = wt.encode_infer(audio)
     audio_hat = wt.decode(features, bandwidth_id=0)
     features = wt.codes_to_features(codes)
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``; on
-the card the VQ search and the ConvNeXt blocks run in this package's own
-kernels (``ops/kernels.py``).  Inputs may be numpy arrays or tensors;
-outputs are tensors on the model's device.
+the card the encoder front (layers 0-6), the VQ search and the ConvNeXt
+blocks run in this package's own kernels (``ops/kernels.py``).  Inputs may
+be numpy arrays or tensors; outputs are tensors on the model's device.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from ..checkpoint.convert import convert_wavtokenizer_state_dict
+from ..checkpoint.convert import (average_state_dicts, convert_wavtokenizer_state_dict,
+                                  load_torch_state_dict)
 from ..models import wavtokenizer as wt
 from ..models.seanet import encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
+from ..ops.encoder_front import front_geometry_matches, prepare_front_weights
 from ..ops.lstm import lstm_from_layers
+from .config import spec_from_config
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -60,6 +66,10 @@ def _encoder(params: list, spec: WavTokenizerSpec, device) -> list:
             out.append({"lstm": lstm_from_layers(p["layers"], device)})
         else:
             out.append({})
+    specs = encoder_layer_specs(spec.seanet)
+    # Any length the gate admits will do: the pack depends on the weights only.
+    if front_geometry_matches(specs, out, 1024):
+        out[0]["front"] = prepare_front_weights(out)
     return out
 
 
@@ -138,6 +148,31 @@ class WavTokenizer:
         feature_extractor. / backbone. / head.)."""
         return cls.from_jax_params(convert_wavtokenizer_state_dict(state_dict, spec),
                                    spec, device)
+
+    @classmethod
+    def from_pretrained0802(cls, config_path: str, model_path: str,
+                            device="cuda") -> "WavTokenizer":
+        """A released Lightning checkpoint and its YAML config, unchanged
+        (ref decoder/pretrained.py:95-114).  The YAML needs PyYAML."""
+        spec = spec_from_config(config_path)
+        return cls.from_state_dict(load_torch_state_dict(model_path), spec, device)
+
+    @classmethod
+    def from_pretrained0911(cls, config_path: str, model_folder_path: str,
+                            device="cuda") -> "WavTokenizer":
+        """Average the 3 best ``vocos_*`` checkpoints of a folder by the
+        val_loss in their file names (ref decoder/pretrained.py:117-156).
+
+        Keeps the reference's selection quirks on purpose: val_loss is the
+        raw file-name substring [-11:-5], sorted as a STRING (so '10.234'
+        sorts before '4.567'), and a file is kept when its substring is among
+        the three (so a repeated loss string admits more than 3 files)."""
+        spec = spec_from_config(config_path)
+        names = [n for n in os.listdir(model_folder_path) if n.startswith("vocos_")]
+        val_loss = sorted(n[-11:-5] for n in names)[:3]
+        sds = [load_torch_state_dict(os.path.join(model_folder_path, n))
+               for n in names if n[-11:-5] in val_loss]
+        return cls.from_state_dict(average_state_dicts(sds), spec, device)
 
     def _audio(self, audio) -> torch.Tensor:
         a = torch.as_tensor(audio, dtype=torch.float32).to(self.device)

@@ -197,3 +197,30 @@ def convert_wavtokenizer_state_dict(sd, spec: WavTokenizerSpec) -> dict:
         "backbone": vocos_backbone_params(sd, "backbone.", spec.backbone),
         "head": istft_head_params(sd, "head."),
     }
+
+
+INFERENCE_PREFIXES = ("backbone.", "head.", "feature_extractor.")
+
+
+def load_torch_state_dict(path: str, prefixes=INFERENCE_PREFIXES) -> dict:
+    """A torch/Lightning checkpoint file -> {key: np.ndarray}, keeping only
+    the keys under ``prefixes`` (ref decoder/pretrained.py:101-105).
+
+    Tries ``weights_only=True`` first; a checkpoint that pickles other
+    objects (Lightning's hyper-parameters) is loaded in full after that."""
+    import torch
+    try:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        raw = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    return {k: v.detach().cpu().numpy() for k, v in raw.items()
+            if k.startswith(prefixes)}
+
+
+def average_state_dicts(sds: list[dict]) -> dict:
+    """Checkpoint averaging, in float64 (ref decoder/pretrained.py:117-156)."""
+    keys = sds[0].keys()
+    return {k: np.mean([np.asarray(sd[k], dtype=np.float64) for sd in sds], axis=0)
+                .astype(np.float32) for k in keys}

@@ -7,7 +7,9 @@ Port of ``wavtokenizer_tpu/models/seanet.py`` (ref encoder/modules/seanet.py:
 order); ``seanet_encode`` runs the encoder stack.  Activations are
 channel-last (B, T, C) between layers.  Params per layer:
 
-* conv:     {"weight": (C_out, C_in, K), "bias": (C_out,)}
+* conv:     {"weight": (C_out, C_in, K), "bias": (C_out,)}; layer 0 also
+            holds the front kernel's packed weights under "front" when the
+            geometry matches (``ops/encoder_front.py``)
 * resblock: {"block": [conv, conv], "shortcut": conv (unless true_skip)}
 * lstm:     {"lstm": nn.LSTM}
 * elu:      {}
@@ -21,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import kernels
 from ..ops.conv import sconv1d
+from ..ops.encoder_front import front_geometry_matches
 from ..ops.lstm import slstm
 
 
@@ -153,12 +157,28 @@ def _apply_layer(p: dict, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
 
 
-def seanet_encode(params: list, cfg: SEANetConfig, audio: torch.Tensor) -> torch.Tensor:
+def _plain_front(params: list, specs: list[LayerSpec], x: torch.Tensor) -> torch.Tensor:
+    """Layers 0-6 through the plain path: the front kernel's plain version
+    (``ops/kernels.py::encoder_front_reference``)."""
+    for p, spec in zip(params[:7], specs[:7]):
+        x = _apply_layer(p, spec, x)
+    return x
+
+
+def seanet_encode(params: list, cfg: SEANetConfig, audio: torch.Tensor,
+                  front: bool = True) -> torch.Tensor:
     """audio (B, T, 1) -> latent (B, T', dimension), fp32.
 
-    The caller sets the precision: ``models/wavtokenizer.encode_infer``
-    turns TF32 off around this call."""
-    x = audio
-    for p, spec in zip(params, encoder_layer_specs(cfg)):
+    When ``front`` is set and ``front_geometry_matches`` admits the encoder
+    and the length (small-320 geometry, T % 8 == 0, T >= 1024), layers 0-6
+    go through ``ops/kernels.py::encoder_front``: its CUDA kernel on the
+    card, its plain version (these same layers) on the CPU.  ``front=False``
+    runs every layer plainly.  The caller sets the precision:
+    ``models/wavtokenizer.encode_infer`` turns TF32 off around this call."""
+    specs = encoder_layer_specs(cfg)
+    x, start = audio, 0
+    if front and front_geometry_matches(specs, params, audio.shape[1]):
+        x, start = kernels.encoder_front(audio.contiguous(), params, specs), 7
+    for p, spec in zip(params[start:], specs[start:]):
         x = _apply_layer(p, spec, x)
     return x

@@ -10,6 +10,7 @@ layouts at the boundary are the JAX package's: audio (B, T), features
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -33,25 +34,43 @@ class WavTokenizerSpec:
         return self.seanet.hop_length
 
 
+_FP32_LOCK = threading.Lock()
+_fp32_depth = 0          # callers inside full_fp32, all threads
+_fp32_saved = None       # (cudnn, matmul) flags of the first one in
+
+
 @contextlib.contextmanager
 def full_fp32():
     """TF32 off for both cuBLAS matmuls and cuDNN (convolutions, LSTM), and
-    back to the caller's settings afterwards.
+    back to the callers' settings once the last caller has left.
 
     PyTorch leaves ``torch.backends.cudnn.allow_tf32`` on by default, so an
     fp32 conv on the card keeps only ~10 mantissa bits; in the encoder that
     moves the embedding enough to flip tokens near a Voronoi boundary (the
     same trap flipped 23/960 small600 tokens on the TPU before its encoder
-    convs were pinned to fp32-equivalent precision)."""
-    cudnn = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    convs were pinned to fp32-equivalent precision).
+
+    The flags are process-global, so concurrent callers (a serving engine's
+    worker beside direct callers) share one depth count under a lock: the
+    first to enter saves the flags and turns TF32 off, the last to leave
+    restores them.  Saving and restoring per caller would let one thread
+    turn TF32 back on while another is still encoding."""
+    global _fp32_depth, _fp32_saved
+    with _FP32_LOCK:
+        if _fp32_depth == 0:
+            _fp32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        with _FP32_LOCK:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _fp32_saved
 
 
 @torch.inference_mode()

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the codec's hot ops, and their plain versions.
 
-Two kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
+Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
 
 * ``vq_nearest`` (``csrc/vq_nearest.cu``) replaces the Pallas kernel
   ``wavtokenizer_tpu/ops/kernels.py::vq_nearest_fused``: the fp32 distance
@@ -10,10 +10,14 @@ Two kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
   ``convnext_block_fused``: depthwise conv k7 -> (Ada)LayerNorm -> Linear ->
   exact GELU -> Linear -> layer scale -> residual, with bf16 matmul operands
   and fp32 sums, in three launches.
+* ``encoder_front`` (``csrc/encoder_front.cu``) replaces
+  ``wavtokenizer_tpu/ops/encoder_front.py::encoder_front_fused``: SEANet
+  encoder layers 0-6 of the small-320 geometry in fp32, three launches.
 
-Both sources are built at first use by ONE ``nvcc`` call into a shared
-library with a plain C interface (``_build/`` next to this package, listed
-in ``.gitignore``) and loaded with ``ctypes``; no PyTorch header is compiled.
+Each source is built at first use by its own ``nvcc`` call, all started
+together, into a shared library with a plain C interface (``_build/`` next
+to this package, listed in ``.gitignore``) and loaded with ``ctypes``; no
+PyTorch header is compiled.
 
 Every wrapper dispatches on the device of its input: a CPU tensor goes to
 the plain PyTorch version beside it (``*_reference``, what the CPU tests
@@ -29,18 +33,36 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+import types
 
 import torch
 import torch.nn.functional as F
 
+from .encoder_front import front_geometry_matches
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("vq_nearest.cu", "convnext.cu")
+
+# C entry points of each source: name -> argument types (c_void_p for every
+# pointer and the stream, c_int for every int).
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {
+    "vq_nearest.cu": {"wt_vq_nearest": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp]},
+    "convnext.cu": {
+        "wt_convnext_dwln": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+        "wt_convnext_gemm1": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+        "wt_convnext_gemm2": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    },
+    "encoder_front.cu": {
+        "wt_encoder_front": [_vp] * 8 + [_i, _i, _vp]},
+}
 
 _lib = None
-build_seconds = None   # wall time of the nvcc call that built the library
+_lib_lock = threading.Lock()   # the first build may run on a worker thread
+build_seconds = None   # wall time of the nvcc calls that built the libraries
 
 
 def _nvcc() -> str:
@@ -55,40 +77,54 @@ def _nvcc() -> str:
     return found
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source content) and load the kernels' shared library."""
+def _so_path(source: str) -> str:
+    with open(os.path.join(CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{source[:-3]}_{digest}.so")
+
+
+def load_library() -> types.SimpleNamespace:
+    """Build (once per source content) and load the kernels' libraries.
+
+    One ``nvcc`` per source, all started together, each into its own shared
+    library keyed by the source's hash; returns a namespace of the C entry
+    points."""
     global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    paths = [os.path.join(CSRC, s) for s in SOURCES]
-    digest = hashlib.sha256()
-    for p in paths:
-        with open(p, "rb") as f:
-            digest.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libwt_kernels_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, *paths]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.wt_vq_nearest.argtypes = [vp, vp, vp, vp, i, i, i, vp]
-    lib.wt_convnext_dwln.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
-    lib.wt_convnext_gemm1.argtypes = [vp, vp, vp, vp, i, i, i, vp]
-    lib.wt_convnext_gemm2.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
-    for fn in (lib.wt_vq_nearest, lib.wt_convnext_dwln, lib.wt_convnext_gemm1,
-               lib.wt_convnext_gemm2):
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        sos = {s: _so_path(s) for s in ENTRY_POINTS}
+        todo = {s: so for s, so in sos.items() if not os.path.exists(so)}
+        if todo:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = _nvcc()
+            t0 = time.perf_counter()
+            procs = {s: (so, subprocess.Popen(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                 f"{so}.{os.getpid()}.tmp", os.path.join(CSRC, s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                for s, so in todo.items()}
+            errors = []
+            for s, (so, proc) in procs.items():
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc {s} failed ({proc.returncode}):\n{err}")
+                else:
+                    os.replace(f"{so}.{os.getpid()}.tmp", so)
+            build_seconds = time.perf_counter() - t0
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        lib = types.SimpleNamespace()
+        for source, entries in ENTRY_POINTS.items():
+            cdll = ctypes.CDLL(sos[source])
+            for name, argtypes in entries.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(lib, name, fn)
+        _lib = lib
+        return lib
 
 
 def _check(rc: int, name: str) -> None:
@@ -235,6 +271,62 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
 convnext_block.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# SEANet encoder front (layers 0-6)
+# ---------------------------------------------------------------------------
+
+def encoder_front_reference(audio: torch.Tensor, params: list, specs: list) -> torch.Tensor:
+    """Plain version: the port's own encoder layers 0-6 (``_apply_layer``).
+
+    cuDNN fp32 on the card only with ``torch.backends.cudnn.allow_tf32``
+    off, which the encode path sets (``models/wavtokenizer.py::full_fp32``)."""
+    # Imported here: models/seanet.py imports this module.
+    from ..models.seanet import _plain_front
+    return _plain_front(params, specs, audio)
+
+
+def encoder_front(audio: torch.Tensor, params: list, specs: list) -> torch.Tensor:
+    """audio (B, T, 1) f32 -> (B, T/8, 128) f32: encoder layers 0-6.
+
+    ``params``/``specs`` are the encoder's layer params and specs; on the
+    card the kernel takes the packed weights ``params[0]["front"]``
+    (``ops/encoder_front.py::prepare_front_weights``, made when the model is
+    built) and needs ``front_geometry_matches``."""
+    if not _dispatch(audio, "encoder_front"):
+        return encoder_front_reference(audio, params, specs)
+    B, T, _ = audio.shape
+    if not front_geometry_matches(specs, params, T):
+        raise ValueError(f"encoder_front kernel: geometry or length T={T} not "
+                         "served (front_geometry_matches is False)")
+    pack = params[0].get("front")
+    if pack is None:
+        raise ValueError("encoder_front kernel: params[0] has no 'front' weight "
+                         "pack (build the model with api.pretrained)")
+    dev, f32 = audio.device, torch.float32
+    _require(audio, "audio", f32, (B, T, 1), dev)
+    _require(pack["a"], "front a", f32, (11664,), dev)
+    _require(pack["b"], "front b", f32, (12448,), dev)
+    _require(pack["wd"], "front wd", f32, (512, 128), dev)
+    _require(pack["bd"], "front bd", f32, (128,), dev)
+    x2 = torch.empty((B, T // 2, 64), dtype=f32, device=dev)
+    x3 = torch.empty((B, T // 2, 64), dtype=f32, device=dev)
+    out = torch.empty((B, T // 8, 128), dtype=f32, device=dev)
+    if B == 0:
+        return out
+    lib = load_library()
+    rc = lib.wt_encoder_front(audio.data_ptr(), pack["a"].data_ptr(),
+                              pack["b"].data_ptr(), pack["wd"].data_ptr(),
+                              pack["bd"].data_ptr(), x2.data_ptr(), x3.data_ptr(),
+                              out.data_ptr(), B, T, _stream())
+    encoder_front.launches += 1
+    _check(rc, "encoder_front")
+    return out
+
+
+encoder_front.launches = 0
+
+
 def reset_launch_counts() -> None:
     vq_nearest.launches = 0
     convnext_block.launches = 0
+    encoder_front.launches = 0
