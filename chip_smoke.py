@@ -34,10 +34,14 @@ import torch
 
 H100_FP32_FLOPS = 67e12      # dense fp32 outside the tensor cores (SXM data sheet)
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor cores
+H100_TF32_FLOPS = 495e12     # dense TF32 tensor cores
 H100_BYTES = 3.35e12         # HBM3
 # Encoder layers 0-6 of small-320, multiply-adds per audio sample: conv0 224,
-# resblock 32 3072, down k4 s2 4096, resblock 64 6144, down k8 s4 8192.
-FRONT_MACS_PER_SAMPLE = 224 + 3072 + 4096 + 6144 + 8192
+# resblock 32 3072, down k4 s2 4096, resblock 64 6144 (fp32 FMAs on the CUDA
+# cores), and down k8 s4 8192 (three TF32 products each on the tensor cores,
+# 3xTF32).
+FRONT_FP32_MACS_PER_SAMPLE = 224 + 3072 + 4096 + 6144
+FRONT_TF32_MACS_PER_SAMPLE = 8192
 TIMING_BATCH = 128
 TIMING_SECONDS = 3.0
 
@@ -82,6 +86,42 @@ def launch_counts(K) -> dict:
     return {"vq_nearest": K.vq_nearest.launches,
             "convnext_block": K.convnext_block.launches,
             "encoder_front": K.encoder_front.launches}
+
+
+def traced(fn) -> tuple:
+    """Run fn() once under torch.profiler (CPU and CUDA activity); returns the
+    device time in ms and the launch count of every CUDA kernel by name, and
+    the device idle share of the window from the first traced event to the
+    last kernel's end.  Raises when the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    check(bool(dev), "torch.profiler traced no device activity")
+    by_name: dict = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = max(e for _, e in spans) - min(e.time_range.start for e in events)
+    return by_name, 1.0 - busy / window
+
+
+def kernel_lines(by_name: dict, top: int) -> str:
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, (ms, n) in rows)
 
 
 def vq_distance_gap(x, embed, a, b) -> float:
@@ -173,6 +213,15 @@ def serving_phase(model, spec, K, kind: str) -> dict:
         for f in futs:
             f.result(600)
         engine_wall = time.perf_counter() - t0
+        # An out-of-range code (>= bins) must fail only its own request, with
+        # a 400, and leave the card serving: the requests after it succeed.
+        bad_codes = detok[0].copy()
+        bad_codes[5] = spec.vq.bins
+        bad_code = post("/detokenize", json.dumps({"codes": serve.encode_tensor(bad_codes)}))
+        after = [post("/detokenize", json.dumps({"codes": serve.encode_tensor(c)}))
+                 for c in detok[:4]]
+        after.append(post("/encode", json.dumps({"audio": serve.encode_tensor(clips[0])})))
+        torch.cuda.synchronize()
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -184,6 +233,14 @@ def serving_phase(model, spec, K, kind: str) -> dict:
           f"bad requests answered {[r[0] for r in bad_res]}, expected 400 and 400")
     check(all(r[0] == 200 for r in good),
           f"failed requests: {[(r[0], r[1].get('error')) for r in good if r[0] != 200]}")
+    check(bad_code[0] == 400, f"out-of-range code answered {bad_code[0]}, expected 400")
+    check(all(r[0] == 200 for r in after),
+          f"requests after the out-of-range code: {[r[0] for r in after]}")
+    after_rel = max(rel_max(torch.as_tensor(serve.decode_tensor(a[1]["audio"])),
+                            torch.as_tensor(serve.decode_tensor(g[1]["audio"])))
+                    for a, g in zip(after[:4], good[len(clips):]))
+    check(after_rel < SAME_CARD_WAVE_TOL,
+          f"audio after the out-of-range code: rel-max err {after_rel:.3g} against before it")
     # Every served code row against a direct encode of that clip.
     flips = n_ids = 0
     for clip, (_, out, _) in zip(clips, good):
@@ -206,7 +263,8 @@ def serving_phase(model, spec, K, kind: str) -> dict:
             "occupancy": stats["mean_batch_occupancy"], "batches": stats["batches"],
             "engine_req_per_s": len(good) / engine_wall,
             "engine_audio_s_per_s": audio_s / engine_wall,
-            "flips": flips, "n_ids": n_ids, "wave_rel": wave_rel, "launches": launches}
+            "flips": flips, "n_ids": n_ids, "wave_rel": wave_rel, "launches": launches,
+            "after_rel": after_rel}
 
 
 def long_audio_phase(model, spec, K) -> dict:
@@ -315,8 +373,9 @@ def main() -> int:
             f"over max |out - x| {rel_update:.3g}")
 
     # Kernel 3 at the main path's lengths (the golden small-320 and music-16k
-    # clips), the shortest length the gate admits, and a length that leaves
-    # every launch a partial last tile (T/2 = 65*63 + 17, T/8 = 1028).
+    # clips), the shortest length the gate admits (a last tile of 4 of the
+    # 62 frames a block owns), and a length that leaves a partial last tile
+    # (T/8 = 1028 = 16*62 + 36).
     enc_p, enc_specs = model.params["encoder"], encoder_layer_specs(small320.seanet)
     front_err = 0.0
     clips = [torch.as_tensor(golden_clip(s))[:, :, None]
@@ -442,9 +501,9 @@ def main() -> int:
         xb = (torch.randn(TIMING_BATCH, T_frames, C, generator=gen)).to(dev)
         bargs = (xb, block["dw"], block["dwb"], block["adanorm"]["scale"][0],
                  block["adanorm"]["shift"][0], block["w1"], block["b1"], block["w2"],
-                 block["b2"], block["gamma"])
+                 block["b2"], block["gamma"], block["w1t"], block["w2t"])
         cnx_ms = cuda_ms(lambda: K.convnext_block(*bargs), 20)
-        cnx_plain = cuda_ms(lambda: K.convnext_block_reference(*bargs), 20)
+        cnx_plain = cuda_ms(lambda: K.convnext_block_reference(*bargs[:10]), 20)
         M = TIMING_BATCH * T_frames
         ops_s = 4 * M * C * I / H100_BF16_FLOPS + 14 * M * C / H100_FP32_FLOPS
         bytes_s = (2 * M * C * 4 + 2 * C * I * 2 + (13 * C + I) * 4) / H100_BYTES
@@ -460,18 +519,41 @@ def main() -> int:
             front_ms = cuda_ms(lambda: K.encoder_front(a3, enc_p, enc_specs), 5)
             front_plain = cuda_ms(lambda: K.encoder_front_reference(a3, enc_p, enc_specs), 5)
         S = audio.numel()
-        front_ops_s = 2 * FRONT_MACS_PER_SAMPLE * S / H100_FP32_FLOPS
+        # The CUDA cores and the tensor cores can run at once: the least
+        # time is the larger of the two units' times.
+        front_ops_s = max(2 * FRONT_FP32_MACS_PER_SAMPLE * S / H100_FP32_FLOPS,
+                          3 * 2 * FRONT_TF32_MACS_PER_SAMPLE * S / H100_TF32_FLOPS)
+        front_fp32_only = 2 * (FRONT_FP32_MACS_PER_SAMPLE + FRONT_TF32_MACS_PER_SAMPLE) \
+            * S / H100_FP32_FLOPS * 1e3
         n_weights = sum(t.numel() for t in enc_p[0]["front"].values())
         front_bytes_s = (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / H100_BYTES
         front_bound = max(front_ops_s, front_bytes_s) * 1e3
         front_by = "operations" if front_ops_s > front_bytes_s else "bytes"
     log(f"[6 timing] encoder_front B={TIMING_BATCH} x {audio.shape[1]}: kernel "
         f"{front_ms:.3f} ms, plain {front_plain:.3f} ms, bound {front_bound:.3f} ms "
-        f"({front_by}); library: none (no single PyTorch call); card {card}")
+        f"({front_by}; {front_fp32_only:.3f} ms were every product an fp32 FMA); "
+        f"library: none (no single PyTorch call); card {card}")
     log(f"[6 timing] vq_nearest N={N}: kernel {vq_ms:.3f} ms, plain {vq_plain:.3f} ms, "
         f"bound {vq_bound:.3f} ms ({vq_by}); convnext_block M={M}: kernel {cnx_ms:.3f} ms, "
         f"plain {cnx_plain:.3f} ms, bound {cnx_bound:.3f} ms; cuBLAS bf16 GEMM pair "
         f"alone {gemm_ms:.3f} ms; card {card}")
+
+    # Per-launch split from a torch.profiler trace: one convnext_block and
+    # one encoder_front call at the timing shapes, then one round trip.
+    with torch.inference_mode():
+        split, _ = traced(lambda: K.convnext_block(*bargs))
+        log(f"[6 profile] convnext_block M={M}, device time by kernel: "
+            f"{kernel_lines(split, 8)}; card {card}")
+        with full_fp32():
+            split, _ = traced(lambda: K.encoder_front(a3, enc_p, enc_specs))
+        log(f"[6 profile] encoder_front B={TIMING_BATCH} x {audio.shape[1]}, device time "
+            f"by kernel: {kernel_lines(split, 8)}; card {card}")
+        split, idle = traced(lambda: model.decode(model.codes_to_features(
+            model.encode_infer(audio)[1]), 0))
+    total = sum(ms for ms, _ in split.values())
+    log(f"[6 profile] round trip B={TIMING_BATCH} x {TIMING_SECONDS:.0f} s: device busy "
+        f"{total:.3f} ms in {sum(n for _, n in split.values())} device ops, idle share "
+        f"{idle:.4f}; top: {kernel_lines(split, 12)}; card {card}")
 
     # -- 7. serving ------------------------------------------------------
     sv = serving_phase(model, small320, K, kind)
@@ -486,6 +568,9 @@ def main() -> int:
         f"encode_infer (limit {max_flips(sv['n_ids'])}); detokenized audio rel-max err "
         f"{sv['wave_rel']:.3g} against direct decode (limit {SAME_CARD_WAVE_TOL}); "
         f"4 s clip and malformed body answered 400; launches {sv['launches']}")
+    log(f"[7 serving] /detokenize with code {small320.vq.bins} (>= bins) answered 400; "
+        f"the 5 requests after it answered 200, detokenized audio rel-max err "
+        f"{sv['after_rel']:.3g} against the same codes before it")
 
     # -- 8. long audio ----------------------------------------------------
     la = long_audio_phase(model, small320, K)

@@ -51,9 +51,14 @@ def test_vq_nearest_ties_go_to_the_lowest_index(cuda):
     assert K.vq_nearest(x, e).tolist() == [7, 7, 7]
 
 
+# M = 300 rows (not a multiple of the 128-row tile); the model's widths at a
+# small B x T' (M = 150); C = 96, I = 352: N and K of both GEMMs off the
+# 128-wide tile and the 64-deep K step, so TMA zero-fills and the epilogue
+# masks.
+@pytest.mark.parametrize("B,T,C,I", [(3, 100, 128, 384), (2, 75, 768, 2304),
+                                     (1, 37, 96, 352)])
 @pytest.mark.parametrize("adanorm", [False, True])
-def test_convnext_block_kernel_matches_plain(cuda, adanorm):
-    B, T, C, I = 3, 100, 128, 384
+def test_convnext_block_kernel_matches_plain(cuda, adanorm, B, T, C, I):
     g = torch.Generator().manual_seed(int(adanorm))
     f = lambda *s, sc=0.1: (torch.randn(*s, generator=g) * sc).to(cuda)
     scale, shift = ((1 + f(4, C))[1], f(4, C)[1]) if adanorm else (1 + f(C), f(C))
@@ -61,8 +66,10 @@ def test_convnext_block_kernel_matches_plain(cuda, adanorm):
     args = (x, f(7, C), f(C), scale.contiguous(), shift.contiguous(),
             f(C, I, sc=0.05).to(torch.bfloat16), f(I), f(I, C, sc=0.05).to(torch.bfloat16),
             f(C), f(C, sc=0.3))
+    before = K.convnext_block.launches
     got = K.convnext_block(*args)
     torch.cuda.synchronize()
+    assert K.convnext_block.launches == before + 1
     want = K.convnext_block_reference(*args)
     # Same bf16 operands and fp32 sums; only the summation order differs.
     err = (got - want).abs().max() / (want - x).abs().max()
@@ -89,9 +96,11 @@ def small320_encoder():
     return model.params["encoder"], encoder_layer_specs(spec.seanet), spec
 
 
-# T=1024 is the shortest length the gate admits; T=8224 leaves every launch
-# a partial last tile (T/2 = 65*63 + 17 = 64*64 + 16, T/8 = 1028 frames).
-@pytest.mark.parametrize("B,T", [(2, 1024), (2, 8224), (1, 6144), (3, 72000)])
+# T=1024 is the shortest length the gate admits (T/8 = 128 = 2*62 + 4: a last
+# tile of 4 frames); T=8224 leaves a partial last tile (T/8 = 1028 = 16*62 +
+# 36); B=5 x T=24000 makes 5*49 = 245 tiles, not a multiple of the 132 SMs.
+@pytest.mark.parametrize("B,T", [(2, 1024), (2, 8224), (1, 6144), (3, 72000),
+                                 (5, 24000)])
 def test_encoder_front_kernel_matches_plain(small320_encoder, B, T):
     from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
     params, specs, _ = small320_encoder

@@ -71,6 +71,28 @@ def test_convnext_block_matches_jax(adanorm):
     assert rel < 2e-3, rel
 
 
+def test_convnext_pack_layout():
+    """The model packs each block's weights K-major for the kernel's GEMMs:
+    w1t = w1^T (I, C) and w2t = w2^T (C, I), bf16 and contiguous, and the
+    block gives the same output with or without the packed operands."""
+    from test_torch_slice import _small_params, _small_specs
+    from wavtokenizer_tpu_torch import WavTokenizer
+    from wavtokenizer_tpu_torch.models import vocos
+    tspec, jspec = _small_specs()
+    audio = np.zeros((1, 2048), np.float32)
+    wt = WavTokenizer.from_jax_params(_small_params(jspec, 3, audio), tspec, device="cpu")
+    block = wt.params["backbone"]["convnext"][0]
+    C, I = block["w1"].shape
+    for name, w, shape in (("w1t", block["w1"], (I, C)), ("w2t", block["w2"], (C, I))):
+        packed = block[name]
+        assert packed.shape == shape and packed.dtype == torch.bfloat16
+        assert packed.is_contiguous() and torch.equal(packed, w.t())
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 9, C)).astype(np.float32))
+    plain = {k: v for k, v in block.items() if k not in ("w1t", "w2t")}
+    torch.testing.assert_close(vocos.convnext_block(block, x, 0),
+                               vocos.convnext_block(plain, x, 0), rtol=0, atol=0)
+
+
 def test_wrappers_refuse_a_device_without_a_path():
     meta = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):

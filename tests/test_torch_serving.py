@@ -114,6 +114,32 @@ def test_engine_bad_payloads_fail_only_their_own_future(narrow):
     eng.close()   # a second close is a no-op
 
 
+def test_engine_out_of_range_code_fails_only_its_own_request(narrow):
+    """A detokenize request holding code 67 (>= the 64 bins) coalesced with a
+    valid one: the bad one fails with ValueError, the valid one returns the
+    audio of a direct decode.  Negative codes down to -bins wrap."""
+    wt, _, _ = narrow
+    bins = wt.spec.vq.bins
+    rng = np.random.default_rng(6)
+    codes = rng.integers(0, bins, size=75).astype(np.int32)
+    bad = codes.copy()
+    bad[10] = 67
+    cfg = EngineConfig(batch_sizes=(4,), clip_seconds=(0.1,), max_wait_ms=50.0)
+    with ServingEngine(wt, cfg) as eng:
+        fut_good = eng.submit("detokenize", codes)
+        fut_bad = eng.submit("detokenize", bad)
+        fut_low = eng.submit("detokenize", np.full(75, -bins - 1, np.int32))
+        fut_wrap = eng.submit("detokenize", codes - bins)
+        for fut in (fut_bad, fut_low):
+            with pytest.raises(ValueError, match="must lie in"):
+                fut.result(timeout=10)
+        wav = fut_good.result(timeout=120)
+        wav_wrap = fut_wrap.result(timeout=120)
+    want = wt.decode(wt.codes_to_features(codes[None, None]), bandwidth_id=0)[0].numpy()
+    np.testing.assert_allclose(wav, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(wav_wrap, want, rtol=0, atol=1e-5)
+
+
 def test_engine_blocking_helpers_honor_timeouts(narrow):
     wt, _, _ = narrow
     cfg = EngineConfig(batch_sizes=(2,), clip_seconds=(0.1,), request_timeout_s=0.05)
@@ -172,6 +198,11 @@ def test_serve_http_endpoints(narrow):
         status, out = call("POST", "/encode",
                            json.dumps({"audio": serve.encode_tensor(too_long)}))
         assert status == 400 and "largest bucket" in out["error"]
+        bad_codes = codes.copy()
+        bad_codes[3] = 67
+        status, out = call("POST", "/detokenize",
+                           json.dumps({"codes": serve.encode_tensor(bad_codes)}))
+        assert status == 400 and "must lie in" in out["error"]
         assert call("POST", "/transcode", "{}")[0] == 404
         status, stats = call("GET", "/stats")
         assert status == 200 and stats["by_op"] == {"encode": 1, "detokenize": 1,

@@ -117,7 +117,12 @@ class ServingEngine:
 
         The payload's shape, type and bucket are checked HERE, so a malformed
         or oversized payload fails only its own future and never the batch
-        it would have joined."""
+        it would have joined.  That includes detokenize codes outside
+        ``[-bins, bins)`` (negative ones wrap, as ``jnp.take`` does): such a
+        request fails with ``ValueError`` (a 400 from ``tools/serve.py``)
+        where the JAX package returns NaN audio for that row, because on the
+        card the out-of-range lookup is a device-side assert that leaves the
+        process's CUDA context unusable."""
         if op not in ("encode", "decode", "detokenize"):
             raise ValueError(op)
         fut: Future = Future()
@@ -140,6 +145,10 @@ class ServingEngine:
                     raise ValueError(f"detokenize expects 1-D int codes (T',), got "
                                      f"shape {arr.shape} dtype {arr.dtype}")
                 self._bucket_frames(arr.shape[-1])
+                bins = self.wt.spec.vq.bins
+                if arr.size and (arr.min() < -bins or arr.max() >= bins):
+                    raise ValueError(f"detokenize codes must lie in [-{bins}, {bins}), "
+                                     f"got min {arr.min()} max {arr.max()}")
         except ValueError as e:
             fut.set_exception(e)
             return fut

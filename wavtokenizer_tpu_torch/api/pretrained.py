@@ -28,6 +28,7 @@ from ..models import wavtokenizer as wt
 from ..models.seanet import encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
 from ..ops.encoder_front import front_geometry_matches, prepare_front_weights
+from ..ops.kernels import pack_convnext_weights
 from ..ops.lstm import lstm_from_layers
 from .config import spec_from_config
 
@@ -82,6 +83,7 @@ def _convnext(p: dict, device) -> dict:
          "w2": _t(p["pwconv2"]["weight"], device, torch.bfloat16).contiguous(),
          "b2": _t(p["pwconv2"]["bias"], device),
          "gamma": _t(p["gamma"] if "gamma" in p else np.ones(C), device)}
+    q["w1t"], q["w2t"] = pack_convnext_weights(q["w1"], q["w2"])
     if "adanorm" in p:
         q["adanorm"] = {k: _t(p["adanorm"][k], device) for k in ("scale", "shift")}
     else:

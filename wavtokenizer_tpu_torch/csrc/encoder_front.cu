@@ -13,52 +13,78 @@
 // encoder_front_fused (_kernel).  That kernel emulates fp32 with bf16 hi/lo
 // three-term products on the MXU, carries activations phase-major because
 // Mosaic cannot interleave rows, and splices the 8 edge frames on each side
-// from the plain path.  None of that carries over: here every product is a
-// plain fp32 FMA on the CUDA cores (no TF32, no tensor cores: the tokens are
-// the contract), ELU is expm1f as F.elu computes it, and the sequence edges
-// are reflected in-kernel (route 2 of the port's plan, no splice):
+// from the plain path.  None of that carries over: layers 0-5 are plain
+// fp32 FMAs on the CUDA cores, ELU is expm1f as F.elu computes it, and the
+// last conv runs as 3xTF32 on the tensor cores (below), an fp32-class route
+// like the reference's own Precision.HIGH (bf16 x3): the tokens are the
+// contract, and plain TF32 would not hold them.
 //
-// * Every conv of this stack reflect-pads its own input.  A tile holds each
-//   activation in shared memory, channel-major, as "slots" over a range of
-//   logical positions that may run past either end of the sequence; the slot
-//   of logical position p holds the activation at reflect(p).  A conv
-//   computes slot p from its true position q = reflect(p), reading the input
-//   slots around q, which already hold the reflected input values.  In the
-//   interior q = p and this costs one compare per output position.
+// One launch.  A block owns NT = 62 final positions [n0, n0 + NT) of one
+// batch row and computes layers 0-6 for their receptive field entirely in
+// shared memory, so no intermediate reaches device memory.  Each activation
+// is held channel-major as "slots" over a range of logical positions that
+// runs a few positions past the tile on each side (the halo: the k8 s4 conv
+// needs x3 at 4n-2 .. 4n+5, and so on down to the audio):
 //
-// Three launches, fp32 intermediates in device memory:
-//   (a) front_a: conv0 + resblock(32) + ELU + down k4 s2 -> x2 (B, T/2, 64)
-//   (b) front_b: resblock(64) + ELU                      -> x3 (B, T/2, 64)
-//   (c) front_c: down k8 s4 as an im2col GEMM: row n of the output reads the
-//       512 contiguous floats x3[4n-2 .. 4n+6) (reflected at the two edge
-//       rows) against the weight repacked to (8*64, 128).
-// Weights are repacked once when the model is built
-// (ops/encoder_front.py::prepare_front_weights): every conv as
-// (C_in, K, C_out), so a warp reads one float4 of output channels that all
-// its lanes share.  (a) and (b) read them through the read-only cache (46 KB
-// and 50 KB, resident in L1); their tiles take ~42 KB of shared memory, so
-// four or five blocks share an SM.
+//   array        origin (logical)  slots  channels  region
+//   audio        8 n0 - 11         518    1         sa
+//   x0 / h       8 n0 - 8          512    32        R0
+//   z            8 n0 - 7          510    16        R1
+//   x1e          8 n0 - 7          510    32        R2
+//   x2 / h2      4 n0 - 3          254    64        R0
+//   z2           4 n0 - 2          252    32        R1
+//   x3e          4 n0 - 2          252    64        R2
+//
+// (rate-T rows are 512 floats apart, rate-T/2 rows 257.)
+//
+// The origins are chosen so that output slot s of every conv reads input
+// slots S*s + k (+1 for the two k1 shortcuts).  Every conv of this stack
+// reflect-pads its own input; a slot whose logical position lies outside
+// the sequence must hold the activation at the reflected position.  So a
+// conv first computes every slot as if the sequence had no edge, then the
+// slots past an edge are overwritten by copies of their reflected slots
+// ("fixup"), before the next conv reads them.  In the interior that costs
+// nothing; the edges are exact with no splice.  Slots far past the right
+// edge of a last, partial tile hold values no valid output reads.
+//
+// Work split, layers 0-5: each conv hands (positions x channels) units to
+// the 8 warps; a lane keeps an 8 x 8 (positions x output channels) register
+// tile, 4 x 8 for the two k3 convs, whose narrow outputs would leave warps
+// idle at 8 x 8.  A warp's lanes read consecutive slots of one channel row
+// (conflict-free) and the weights as float4 broadcasts.
+//
+// Layer 6 (65 536 weights, 38% of the multiply-adds) is an im2col GEMM of
+// the block's 64 (62 valid) positions x 512 x 128 on the tensor cores with
+// mma.sync m16n8k8 TF32: every operand is split into a TF32 head and tail
+// and three products are summed in f32 (3xTF32), ~2^-21 relative per
+// product, the accuracy class of fp32.
+//
+// Weights: the two packs of layers 0-5 (45.6 KB and 48.6 KB) are staged in
+// shared memory with cp.async, one after the other; the last conv's weights
+// (256 KB) stream through a 3-slot ring of 17 KB K-slices (cp.async, two
+// slices in flight), whose first two load while the resblock's last conv
+// still runs.  216 KB of shared memory: one block per SM.
 //
 // What bounds it on an H100: 21 728 multiply-adds per audio sample, i.e.
-// ~0.40 TFLOP at B=128 x 3 s, ~6.0 ms at the 67 TFLOP/s fp32 CUDA-core peak,
-// against ~37 MB in and ~590 MB out (~0.19 ms at 3.35 TB/s): arithmetic.
-// The two 1.2 GB intermediates of this three-launch design add ~1.4 ms of
-// traffic on top.  What the simple design leaves on the table, for a later
-// PR: register tiles larger than 4x8, cp.async staging of the weights and
-// the activations, one fused launch without the intermediates, and a
-// 3xTF32 tensor-core route (split each operand into a TF32 head and tail,
-// as CUTLASS does) that keeps fp32 accuracy at tensor-core rates.
+// ~0.40 TFLOP at B=128 x 3 s: ~6.0 ms at the 67 TFLOP/s fp32 CUDA-core peak
+// with every product an fp32 FMA; with layer 6 as 3xTF32 (3 x 0.151 TFLOP
+// at 495 TFLOP/s, 0.9 ms) beside layers 0-5 on the CUDA cores (0.25 TFLOP,
+// 3.7 ms), ~3.7 ms.  The bytes are ~37 MB in and ~590 MB out (~0.19 ms at
+// 3.35 TB/s): arithmetic.  Not in either bound: ~160 ELUs (expm1f) per
+// sample, and the halos, which recompute ~5% of layers 0-5.
 //
 // Plain C interface, bound from Python with ctypes
 // (wavtokenizer_tpu_torch/ops/kernels.py::encoder_front).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int NT = 62;                 // final positions per block
 
 // Offsets (floats) of the packed weights; ops/encoder_front.py builds the
 // packs in this order.  Every conv is (C_in, K, C_out), then its bias.
@@ -73,57 +99,101 @@ constexpr int B_W1 = B_B3 + 32, B_B1 = B_W1 + 32 * 1 * 64;   // k1 32->64
 constexpr int B_WS = B_B1 + 64, B_BS = B_WS + 64 * 1 * 64;   // shortcut 64->64
 constexpr int B_SIZE = B_BS + 64;
 static_assert(A_SIZE == 11664 && B_SIZE == 12448, "pack layout");
+static_assert(A_SIZE % 4 == 0 && B_SIZE % 4 == 0, "packs copy as float4");
+
+// Slot counts and leading dimensions (floats) of the arrays above.
+constexpr int NA = 8 * NT + 22;        // audio
+constexpr int N0 = 8 * NT + 16;        // x0
+constexpr int N1 = 8 * NT + 14;        // z, x1e
+constexpr int N2 = 4 * NT + 6;         // x2
+constexpr int N3 = 4 * NT + 4;         // z2, x3e
+// Rate-T/2 rows are 257 floats: the tensor-core fragments of the last conv
+// read 4 channel rows x 8 positions at once, conflict-free only when a row
+// shifts the bank by one.
+constexpr int LD1 = 512, LD2 = 257;    // rate T and rate T/2 arrays
+static_assert(N0 <= LD1 && N2 <= LD2, "arrays fit their rows");
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int R0_FLOATS = cmax(32 * LD1, 64 * LD2);   // x0, then x2, then the ring
+constexpr int R1_FLOATS = cmax(16 * LD1, 32 * LD2);   // z, then z2
+constexpr int R2_FLOATS = cmax(32 * LD1, 64 * LD2);   // x1e, then x3e
+static_assert(R0_FLOATS % 4 == 0 && R1_FLOATS % 4 == 0 && R2_FLOATS % 4 == 0,
+              "regions stay 16-byte aligned");
+
+constexpr int WB_FLOATS = B_SIZE;      // weight buffer: the larger pack
+
+// The last conv's weights stream through a ring of K-slices in R0: 32 rows
+// of the (512, 128) weight each, rows padded to 136 floats so that the B
+// fragments (4 rows x 8 columns) hit 32 distinct banks.
+constexpr int SLICE_ROWS = 32, SLICES = 512 / SLICE_ROWS, RING = 3, RS = 136;
+constexpr int SLICE_FLOATS = SLICE_ROWS * RS;
+static_assert(RING * SLICE_FLOATS <= R0_FLOATS, "ring fits in R0");
+
+constexpr int AUDIO_FLOATS = (NA + 3) / 4 * 4;
+constexpr int SLACK_FLOATS = 32;       // unclamped reads run a few slots past
+constexpr int SMEM_FLOATS =
+    R0_FLOATS + R1_FLOATS + R2_FLOATS + WB_FLOATS + AUDIO_FLOATS + SLACK_FLOATS;
+constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+static_assert(SMEM_BYTES <= 232448, "one block per SM");
 
 __device__ __forceinline__ float elu(float x) { return x > 0.f ? x : expm1f(x); }
 
-// Reflect a logical position into [0, L) (pads here are a few samples).
-__device__ __forceinline__ int reflect(int p, int L) {
-  return p < 0 ? -p : (p >= L ? 2 * L - 2 - p : p);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// One conv over a tile in shared memory.  in[ci * ldi + slot] and
-// out[co * ldo + slot] are channel-major; w is (CIN, K, COUT) in global
-// memory.  Output slot s (< n) is logical position p = out0 + s; its source
-// position is q = REFL ? reflect(p, L) : p, and tap k reads input slot
-// S * q + in_off + k.  Epilogue: EPI 0 stores acc + b, EPI 1 ELU(acc + b),
-// EPI 2 ELU(out + acc + b).  Each warp owns units of 32*PT positions x PC
-// channels; lane l holds positions l + 32 j.
-template <int CIN, int COUT, int K, int S, bool REFL, int PT, int PC, int EPI>
-__device__ __forceinline__ void conv_tile(const float* __restrict__ in, int ldi,
-                                          int in_off, const float* __restrict__ w,
-                                          const float* __restrict__ bias, float* out,
-                                          int ldo, int n, int out0, int L) {
-  static_assert(COUT % PC == 0 && PC % 4 == 0, "channel groups");
-  constexpr int G = COUT / PC;
+// Copy n floats (n % 4 == 0, both ends 16-byte aligned) into shared memory.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += THREADS) cp_async16(dst + 4 * i, src + 4 * i);
+}
+
+// One conv over slots.  in[ci * ldi + slot] and out[co * ldo + slot] are
+// channel-major; w is (CIN, K, COUT) and bias (COUT,), both in shared
+// memory.  Output slot s (< n) reads input slots S * s + in_off + k.
+// Epilogue: EPI 0 stores acc + b, EPI 1 ELU(acc + b), EPI 2 ELU(out + acc
+// + b).  A warp's unit is PL * PT slots x (32 / PL) * PC channels; lane
+// (pl, cl) holds slots s0 + pl + PL * j and channels c0 + cl * PC + c.
+template <int CIN, int COUT, int K, int S, int PL, int PT, int PC, int EPI>
+__device__ __forceinline__ void conv(const float* in, int ldi, int in_off,
+                                     const float* w, const float* bias, float* out,
+                                     int ldo, int n) {
+  constexpr int CL = 32 / PL, WP = PL * PT, WC = CL * PC, G = COUT / WC;
+  static_assert(COUT % WC == 0 && PC % 4 == 0, "channel groups");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunks = (n + 32 * PT - 1) / (32 * PT);
-  for (int u = warp; u < chunks * G; u += WARPS) {
-    const int c0 = (u / G) * 32 * PT, g = u % G;
-    int s[PT], base[PT];
-#pragma unroll
-    for (int j = 0; j < PT; ++j) {
-      s[j] = c0 + lane + 32 * j;
-      const int p = out0 + min(s[j], n - 1);
-      base[j] = S * (REFL ? reflect(p, L) : p) + in_off;
-    }
+  const int pl = lane % PL, cl = lane / PL;
+  const int units = (n + WP - 1) / WP * G;
+  for (int u = warp; u < units; u += WARPS) {
+    const int s0 = (u / G) * WP, c0 = (u % G) * WC + cl * PC;
+    // Slots past n read whatever follows in shared memory (the next row or
+    // region); their outputs are not stored.  Unclamped, the PT reads of a
+    // tap are one base register plus immediate offsets.
+    const int base = S * (s0 + pl) + in_off;
     float acc[PT][PC];
 #pragma unroll
     for (int j = 0; j < PT; ++j)
 #pragma unroll
       for (int c = 0; c < PC; ++c) acc[j][c] = 0.f;
-    const float* wg = w + g * PC;
+    const float* wc = w + c0;
 #pragma unroll 2
     for (int ci = 0; ci < CIN; ++ci) {
-      const float* inr = in + ci * ldi;
+      const float* row = in + ci * ldi;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         float a[PT], wv[PC];
 #pragma unroll
-        for (int j = 0; j < PT; ++j) a[j] = inr[base[j] + k];
-        const float4* w4 = reinterpret_cast<const float4*>(wg + (ci * K + k) * COUT);
+        for (int j = 0; j < PT; ++j) a[j] = row[base + S * PL * j + k];
+        const float4* w4 = reinterpret_cast<const float4*>(wc + (ci * K + k) * COUT);
 #pragma unroll
         for (int c = 0; c < PC / 4; ++c) {
-          const float4 v = __ldg(w4 + c);
+          const float4 v = w4[c];
           wv[4 * c] = v.x; wv[4 * c + 1] = v.y; wv[4 * c + 2] = v.z; wv[4 * c + 3] = v.w;
         }
 #pragma unroll
@@ -134,12 +204,12 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ in, int ldi,
     }
 #pragma unroll
     for (int c = 0; c < PC; ++c) {
-      const int co = g * PC + c;
-      const float b = __ldg(bias + co);
+      const float b = bias[c0 + c];
 #pragma unroll
       for (int j = 0; j < PT; ++j) {
-        if (s[j] < n) {
-          float* o = out + co * ldo + s[j];
+        const int s = s0 + pl + PL * j;
+        if (s < n) {
+          float* o = out + (c0 + c) * ldo + s;
           float v = acc[j][c] + b;
           if (EPI == 2) v = *o + v;
           if (EPI >= 1) v = elu(v);
@@ -150,200 +220,251 @@ __device__ __forceinline__ void conv_tile(const float* __restrict__ in, int ldi,
   }
 }
 
-__device__ __forceinline__ void elu_inplace(float* buf, int ld, int channels, int n) {
-  for (int i = threadIdx.x; i < channels * n; i += THREADS) {
-    float* p = buf + (i / n) * ld + (i % n);
-    *p = elu(*p);
+// ELU over every slot of a region's rows (the slots past n are never read).
+template <int LD, int CHANNELS>
+__device__ __forceinline__ void elu_inplace(float* buf) {
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  for (int i = threadIdx.x; i < CHANNELS * LD / 4; i += THREADS) {
+    float4 v = b4[i];
+    v.x = elu(v.x); v.y = elu(v.y); v.z = elu(v.z); v.w = elu(v.w);
+    b4[i] = v;
   }
 }
 
-// ---- (a) conv0 + resblock(32) + ELU + down k4 s2 --------------------------
-// A tile owns MA positions [m0, m0 + mv) of x2.  Slot ranges, logical:
-//   x1e and z: [2 m0 - 1, 2 m0 + 2 mv + 1)   (n1 = 2 mv + 2 slots)
-//   x0 / h:    [2 m0 - 2, 2 m0 + 2 mv + 2)   (n0 = 2 mv + 4)
-//   audio:     [2 m0 - 5, 2 m0 + 2 mv + 5)   (na = 2 mv + 10)
-constexpr int MA = 63;
-constexpr int LDA = 2 * MA + 10;     // 136
-constexpr int LD0 = 2 * MA + 5;      // 131 (odd: conflict-free strided reads)
-constexpr int LD1 = 2 * MA + 3;      // 129
-constexpr int LDO_A = MA + 2;        // 65, output staging in the x0 buffer
-static_assert(64 * LDO_A <= 32 * LD0, "staging fits");
+// Reflect the slots of an array past the sequence's edges: slot i holds
+// logical position p = origin + i of a sequence of length L; for p < 0 or
+// p >= L it takes the slot of reflect(p), where that slot exists.
+__device__ __forceinline__ void fixup(float* buf, int ld, int channels, int n, int origin,
+                                      int L) {
+  const int left = min(n, max(0, -origin));          // slots [0, left)
+  const int right = max(left, min(n, L - origin));   // slots [right, n)
+  const int count = left + (n - right);
+  for (int i = threadIdx.x; i < channels * count; i += THREADS) {
+    const int c = i / count, r = i % count;
+    const int slot = r < left ? r : right + (r - left);
+    const int p = origin + slot;
+    const int q = p < 0 ? -p : 2 * L - 2 - p;
+    const int src = q - origin;
+    if (q >= 0 && q < L && src >= 0 && src < n) buf[c * ld + slot] = buf[c * ld + src];
+  }
+}
 
-__global__ void __launch_bounds__(THREADS)
-front_a(const float* __restrict__ audio, const float* __restrict__ wa,
-        float* __restrict__ x2, int T, int tiles_per_row) {
-  __shared__ float sa[LDA];
-  __shared__ float s0[32 * LD0];   // x0, then h = ELU(x0), then x2 staging
-  __shared__ float sz[16 * LD1];   // z = ELU(k3(h))
-  __shared__ float s1[32 * LD1];   // x1e
-  const int L2 = T / 2;
+// The last conv's K-slice i: rows 32 i .. 32 i + 31 of the (512, 128) weight
+// (row = tap * 64 + c_in), each row at a stride of RS floats.
+__device__ __forceinline__ void stage_slice(float* ring, const float* __restrict__ wd, int i) {
+  if (i >= SLICES) return;
+  float* dst = ring + (i % RING) * SLICE_FLOATS;
+  for (int v = threadIdx.x; v < SLICE_ROWS * 32; v += THREADS) {
+    const int row = v / 32, c4 = v % 32;
+    cp_async16(dst + row * RS + 4 * c4, wd + (size_t)(SLICE_ROWS * i + row) * 128 + 4 * c4);
+  }
+}
+
+// fp32 x as a TF32 head and tail.  The head is x rounded to 10 mantissa
+// bits (half an ulp added, the 13 low bits cleared: integer ops, full rate,
+// where cvt.rna.tf32 runs at an eighth of it); the tail x - head is exact in
+// fp32, and the tensor cores read its top 19 bits, so x ~= hi + lo to
+// ~2^-21 relative.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b for one m16n8k8 TF32 tile (f32 sums).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+front_kernel(const float* __restrict__ audio, const float* __restrict__ wa,
+             const float* __restrict__ wb, const float* __restrict__ wd,
+             const float* __restrict__ bd, float* __restrict__ out, int T,
+             int tiles_per_row) {
+  extern __shared__ __align__(16) float smem[];
+  float* R0 = smem;
+  float* R1 = R0 + R0_FLOATS;
+  float* R2 = R1 + R1_FLOATS;
+  float* WB = R2 + R2_FLOATS;
+  float* sa = WB + WB_FLOATS;
+
+  const int T2 = T / 2, T8 = T / 8;
   const int b = blockIdx.x / tiles_per_row;
-  const int m0 = (blockIdx.x % tiles_per_row) * MA;
-  const int mv = min(MA, L2 - m0);
-  const int n1 = 2 * mv + 2, n0 = 2 * mv + 4, na = 2 * mv + 10;
-  const int lo1 = 2 * m0 - 1, lo0 = 2 * m0 - 2, loa = 2 * m0 - 5;
+  const int n0 = (blockIdx.x % tiles_per_row) * NT;
+  const int nv = min(NT, T8 - n0);
+  const int oa = 8 * n0 - 11, o0 = 8 * n0 - 8, o1 = 8 * n0 - 7;
+  const int o2 = 4 * n0 - 3, o3 = 4 * n0 - 2;
 
+  stage(WB, wa, A_SIZE);
+  cp_commit();
   const float* ab = audio + (size_t)b * T;
-  for (int i = threadIdx.x; i < na; i += THREADS) sa[i] = ab[reflect(loa + i, T)];
+  for (int i = threadIdx.x; i < NA; i += THREADS) {
+    const int p = oa + i;
+    const int q = p < 0 ? -p : (p >= T ? 2 * T - 2 - p : p);
+    sa[i] = ab[min(max(q, 0), T - 1)];
+  }
+  cp_wait<0>();
   __syncthreads();
-  // x0 = conv0(audio), reflect pad 3/3.
-  conv_tile<1, 32, 7, 1, true, 4, 8, 0>(sa, 0, -3 - loa, wa + A_W0, wa + A_B0,
-                                        s0, LD0, n0, lo0, T);
+
+  // ---- layers 0-3 at rate T --------------------------------------------
+  // x0 = conv0(audio), reflect pad 3/3 (in the audio slots).
+  conv<1, 32, 7, 1, 32, 4, 8, 0>(sa, 0, 0, WB + A_W0, WB + A_B0, R0, LD1, N0);
   __syncthreads();
-  // Shortcut k1 on the un-ELU'd x0 (with its bias) into x1e.
-  conv_tile<32, 32, 1, 1, true, 2, 8, 0>(s0, LD0, -lo0, wa + A_WS, wa + A_BS,
-                                         s1, LD1, n1, lo1, T);
+  fixup(R0, LD1, 32, N0, o0, T);
   __syncthreads();
-  elu_inplace(s0, LD0, 32, n0);
+  // Shortcut k1 on the un-ELU'd x0 into x1e.
+  conv<32, 32, 1, 1, 32, 8, 8, 0>(R0, LD1, 1, WB + A_WS, WB + A_BS, R2, LD1, N1);
   __syncthreads();
-  // z = ELU(k3(h) + b), reflect pad 1/1.
-  conv_tile<32, 16, 3, 1, true, 2, 4, 1>(s0, LD0, -1 - lo0, wa + A_W3, wa + A_B3,
-                                         sz, LD1, n1, lo1, T);
+  elu_inplace<LD1, 32>(R0);
+  __syncthreads();
+  // z = ELU(k3(h) + b), reflect pad 1/1 (in the x0 slots).
+  conv<32, 16, 3, 1, 32, 4, 8, 1>(R0, LD1, 0, WB + A_W3, WB + A_B3, R1, LD1, N1);
   __syncthreads();
   // x1e = ELU(shortcut + k1(z) + b): the resblock and the ELU layer after it.
-  conv_tile<16, 32, 1, 1, true, 2, 8, 2>(sz, LD1, -lo1, wa + A_W1, wa + A_B1,
-                                         s1, LD1, n1, lo1, T);
+  conv<16, 32, 1, 1, 32, 8, 8, 2>(R1, LD1, 0, WB + A_W1, WB + A_B1, R2, LD1, N1);
   __syncthreads();
-  // x2 = down k4 s2 (reflect pad 1/1, already in the x1e slots).
-  conv_tile<32, 64, 4, 2, false, 2, 8, 0>(s1, LD1, -1 - lo1, wa + A_WD, wa + A_BD,
-                                          s0, LDO_A, mv, m0, L2);
+  fixup(R2, LD1, 32, N1, o1, T);
   __syncthreads();
-  float* xb = x2 + ((size_t)b * L2 + m0) * 64;
-  for (int i = threadIdx.x; i < mv * 64; i += THREADS)
-    xb[i] = s0[(i & 63) * LDO_A + (i >> 6)];
-}
+  // x2 = down k4 s2 (reflect pad 1/1, in the x1e slots).
+  conv<32, 64, 4, 2, 16, 8, 8, 0>(R2, LD1, 0, WB + A_WD, WB + A_BD, R0, LD2, N2);
+  __syncthreads();
 
-// ---- (b) resblock(64) + ELU -----------------------------------------------
-// A tile owns NB positions [n0, n0 + nv) of x3; the x2 / h2 slots cover
-// [n0 - 1, n0 + nv + 1), loaded with the k3 conv's reflect pad.
-constexpr int NB = 64;
-constexpr int LD2 = NB + 3;   // 67
-constexpr int LD3 = NB + 1;   // 65
-
-__global__ void __launch_bounds__(THREADS)
-front_b(const float* __restrict__ x2, const float* __restrict__ wb,
-        float* __restrict__ x3, int L2, int tiles_per_row) {
-  __shared__ float s2[64 * LD2];   // x2, then h2 = ELU(x2)
-  __shared__ float sz[32 * LD3];
-  __shared__ float s3[64 * LD3];
-  const int b = blockIdx.x / tiles_per_row;
-  const int p0 = (blockIdx.x % tiles_per_row) * NB;
-  const int nv = min(NB, L2 - p0);
-  const int n2 = nv + 2, lo2 = p0 - 1;
-
-  const float* xb = x2 + (size_t)b * L2 * 64;
-  for (int i = threadIdx.x; i < n2 * 64; i += THREADS)
-    s2[(i & 63) * LD2 + (i >> 6)] = xb[(size_t)reflect(lo2 + (i >> 6), L2) * 64 + (i & 63)];
+  // ---- layers 4-5 at rate T/2 ------------------------------------------
+  stage(WB, wb, B_SIZE);
+  cp_commit();
+  fixup(R0, LD2, 64, N2, o2, T2);
+  cp_wait<0>();
   __syncthreads();
-  conv_tile<64, 64, 1, 1, false, 2, 8, 0>(s2, LD2, -lo2, wb + B_WS, wb + B_BS,
-                                          s3, LD3, nv, p0, L2);
+  conv<64, 64, 1, 1, 32, 8, 8, 0>(R0, LD2, 1, WB + B_WS, WB + B_BS, R2, LD2, N3);
   __syncthreads();
-  elu_inplace(s2, LD2, 64, n2);
+  elu_inplace<LD2, 64>(R0);
   __syncthreads();
-  conv_tile<64, 32, 3, 1, false, 2, 4, 1>(s2, LD2, -1 - lo2, wb + B_W3, wb + B_B3,
-                                          sz, LD3, nv, p0, L2);
+  conv<64, 32, 3, 1, 32, 4, 8, 1>(R0, LD2, 0, WB + B_W3, WB + B_B3, R1, LD2, N3);
   __syncthreads();
-  conv_tile<32, 64, 1, 1, false, 2, 8, 2>(sz, LD3, -p0, wb + B_W1, wb + B_B1,
-                                          s3, LD3, nv, p0, L2);
-  __syncthreads();
-  float* ob = x3 + ((size_t)b * L2 + p0) * 64;
-  for (int i = threadIdx.x; i < nv * 64; i += THREADS)
-    ob[i] = s3[(i & 63) * LD3 + (i >> 6)];
-}
-
-// ---- (c) down k8 s4 64->128 as an im2col GEMM ----------------------------
-// out (M = B*T8, 128) = A (M, 512) @ Wd (512, 128) + b, where row (b, n) of
-// A is x3[b, reflect(4n - 2 + tap), ci] at column tap * 64 + ci.  A block
-// computes 64 rows x 128 columns, 4 x 8 per thread, over 16-deep slices.
-constexpr int CM = 64, CN = 128, CK = 16;
-
-__global__ void __launch_bounds__(THREADS)
-front_c(const float* __restrict__ x3, const float* __restrict__ wd,
-        const float* __restrict__ bd, float* __restrict__ out, int M, int T8,
-        int L2) {
-  __shared__ __align__(16) float As[CK][CM + 4];
-  __shared__ __align__(16) float Bs[CK][CN];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int lr = tid / 4, kq = (tid % 4) * 4;
-  const int R = blockIdx.x * CM + lr;
-  const bool valid = R < M;
-  size_t rowbase = 0;
-  int p0 = 0;
-  if (valid) {
-    const int b = R / T8, n = R - b * T8;
-    rowbase = (size_t)b * L2;
-    p0 = 4 * n - 2;
+  // R0 is free: the last conv's first K-slices load during the next conv.
+  float* ring = R0;
+  for (int i = 0; i < RING - 1; ++i) {
+    stage_slice(ring, wd, i);
+    cp_commit();
   }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  conv<32, 64, 1, 1, 32, 8, 8, 2>(R1, LD2, 0, WB + B_W1, WB + B_B1, R2, LD2, N3);
+  __syncthreads();
+  fixup(R2, LD2, 64, N3, o3, T2);
 
-  for (int k0 = 0; k0 < 8 * 64; k0 += CK) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid) {
-      const int pos = reflect(p0 + (k0 >> 6), L2);
-      v = __ldg(reinterpret_cast<const float4*>(x3 + (rowbase + pos) * 64 + (k0 & 63) + kq));
-    }
-    As[kq][lr] = v.x; As[kq + 1][lr] = v.y; As[kq + 2][lr] = v.z; As[kq + 3][lr] = v.w;
+  // ---- layer 6: down k8 s4 64->128, 3xTF32 on the tensor cores --------
+  // An im2col GEMM: out (64 positions, 128) = A (64, 512) @ Wd (512, 128)
+  // with A[s][tap * 64 + ci] = x3e[ci][4 s + tap] (rows 62, 63 are past the
+  // tile and not stored).  Each operand is split into a TF32 head and tail
+  // and the three products head*head, head*tail, tail*head are summed in
+  // f32 (tail*tail, ~2^-21 relative, is dropped): fp32-class accuracy at
+  // tensor-core rates.  Warp (wm, wn) = (warp / 4, warp % 4) owns rows
+  // 32 wm .. + 31 and columns 32 wn .. + 31 as 2 x 4 m16n8k8 tiles.  Each
+  // slice's 32-deep sums collect in the tensor cores and are added to the
+  // running f32 sums on the CUDA cores, so no tensor-core sum runs longer
+  // than 96 products.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wm = warp / 4, wn = warp % 4;
+  float acc[2][4][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + THREADS * i, k = idx / 32, c4 = (idx % 32) * 4;
-      *reinterpret_cast<float4*>(&Bs[k][c4]) =
-          __ldg(reinterpret_cast<const float4*>(wd + (size_t)(k0 + k) * CN + c4));
-    }
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+  for (int i = 0; i < SLICES; ++i) {
+    cp_wait<RING - 2>();
     __syncthreads();
+    stage_slice(ring, wd, i + RING - 1);
+    cp_commit();
+    // Slice i is rows 32 i .. + 31: one tap, 32 input channels.
+    const int tap = i / 2, ci0 = 32 * (i % 2);
+    const float* xs = R2 + (ci0 + t) * LD2 + 4 * (32 * wm + g) + tap;
+    const float* ws = ring + (i % RING) * SLICE_FLOATS + t * RS + 32 * wn + g;
+    float part[2][4][4];
 #pragma unroll
-    for (int k = 0; k < CK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][tx * 8 + 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+        for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < SLICE_ROWS / 8; ++kk) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        // a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const float* xa = xs + 8 * kk * LD2 + 64 * mi;
+        split_tf32(xa[0], ah[mi][0], al[mi][0]);
+        split_tf32(xa[32], ah[mi][1], al[mi][1]);
+        split_tf32(xa[4 * LD2], ah[mi][2], al[mi][2]);
+        split_tf32(xa[4 * LD2 + 32], ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        // b0 (k t, column g), b1 (t + 4, g)
+        const float* wb = ws + 8 * kk * RS + 8 * ni;
+        split_tf32(wb[0], bh[ni][0], bl[ni][0]);
+        split_tf32(wb[4 * RS], bh[ni][1], bl[ni][1]);
+      }
+      // Small products first; consecutive mmas go to different tiles, so
+      // none waits on the one before it.
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], al[mi], bh[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ah[mi], bl[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(part[mi][ni], ah[mi], bh[ni]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
   }
-  float bias[8];
+  // c0, c1 at (row g, columns 2t, 2t + 1); c2, c3 at row g + 8.
 #pragma unroll
-  for (int c = 0; c < 8; ++c) bias[c] = __ldg(bd + tx * 8 + c);
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = 32 * wn + 8 * ni + 2 * t;
+    const float b0 = __ldg(bd + col), b1 = __ldg(bd + col + 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = blockIdx.x * CM + ty * 4 + i;
-    if (r < M) {
-      float4* o = reinterpret_cast<float4*>(out + (size_t)r * CN + tx * 8);
-      o[0] = make_float4(acc[i][0] + bias[0], acc[i][1] + bias[1],
-                         acc[i][2] + bias[2], acc[i][3] + bias[3]);
-      o[1] = make_float4(acc[i][4] + bias[4], acc[i][5] + bias[5],
-                         acc[i][6] + bias[6], acc[i][7] + bias[7]);
-    }
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int srow = 32 * wm + 16 * mi + g + 8 * h;
+        if (srow < nv)
+          *reinterpret_cast<float2*>(out + ((size_t)b * T8 + n0 + srow) * 128 + col) =
+              make_float2(acc[mi][ni][2 * h] + b0, acc[mi][ni][2 * h + 1] + b1);
+      }
   }
 }
 
 }  // namespace
 
-// audio (B, T) f32 -> out (B, T/8, 128) f32; x2 and x3 are (B, T/2, 64) f32
-// scratch.  wa / wb are the packs of (a) and (b), wd (512, 128) and bd (128,)
-// the last conv.  Returns the first CUDA error of the three launches, or 0.
+// audio (B, T) f32 -> out (B, T/8, 128) f32.  wa / wb are the packs of
+// layers 0-3 and 4-5, wd (512, 128) and bd (128,) the last conv.  Returns the
+// CUDA error of the launch, or 0.
 extern "C" int wt_encoder_front(const float* audio, const float* wa, const float* wb,
-                                const float* wd, const float* bd, float* x2, float* x3,
-                                float* out, int B, int T, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int L2 = T / 2, T8 = T / 8;
-  const int ta = (L2 + MA - 1) / MA;
-  front_a<<<B * ta, THREADS, 0, s>>>(audio, wa, x2, T, ta);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int tb = (L2 + NB - 1) / NB;
-  front_b<<<B * tb, THREADS, 0, s>>>(x2, wb, x3, L2, tb);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const int M = B * T8;
-  front_c<<<(M + CM - 1) / CM, THREADS, 0, s>>>(x3, wd, bd, out, M, T8, L2);
+                                const float* wd, const float* bd, float* out, int B,
+                                int T, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int tiles = (T / 8 + NT - 1) / NT;
+  front_kernel<<<B * tiles, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      audio, wa, wb, wd, bd, out, T, tiles);
   return (int)cudaGetLastError();
 }

@@ -95,7 +95,8 @@ def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None) -> torc
     else:
         scale, shift = p["norm"]["weight"], p["norm"]["bias"]
     return convnext_block_kernel(x, p["dw"], p["dwb"], scale, shift, p["w1"],
-                                 p["b1"], p["w2"], p["b2"], p["gamma"])
+                                 p["b1"], p["w2"], p["b2"], p["gamma"],
+                                 p.get("w1t"), p.get("w2t"))
 
 
 def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,

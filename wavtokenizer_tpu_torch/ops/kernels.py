@@ -9,10 +9,12 @@ Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
 * ``convnext_block`` (``csrc/convnext.cu``) replaces
   ``convnext_block_fused``: depthwise conv k7 -> (Ada)LayerNorm -> Linear ->
   exact GELU -> Linear -> layer scale -> residual, with bf16 matmul operands
-  and fp32 sums, in three launches.
+  and fp32 sums, in three launches; the two GEMMs are wgmma + TMA.
 * ``encoder_front`` (``csrc/encoder_front.cu``) replaces
   ``wavtokenizer_tpu/ops/encoder_front.py::encoder_front_fused``: SEANet
-  encoder layers 0-6 of the small-320 geometry in fp32, three launches.
+  encoder layers 0-6 of the small-320 geometry in one launch with every
+  intermediate in shared memory: layers 0-5 as fp32 FMAs, the last conv as
+  3xTF32 on the tensor cores (fp32-class accuracy).
 
 Each source is built at first use by its own ``nvcc`` call, all started
 together, into a shared library with a plain C interface (``_build/`` next
@@ -57,7 +59,7 @@ ENTRY_POINTS = {
         "wt_convnext_gemm2": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     },
     "encoder_front.cu": {
-        "wt_encoder_front": [_vp] * 8 + [_i, _i, _vp]},
+        "wt_encoder_front": [_vp] * 6 + [_i, _i, _vp]},
 }
 
 _lib = None
@@ -209,6 +211,12 @@ vq_nearest.launches = 0
 # ConvNeXt block
 # ---------------------------------------------------------------------------
 
+def pack_convnext_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
+    """w1 (C, I), w2 (I, C) -> the kernel's K-major B operands (w1^T (I, C),
+    w2^T (C, I)), contiguous, in the weights' own type."""
+    return w1.t().contiguous(), w2.t().contiguous()
+
+
 def convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
     """Plain version of the block with the kernel's rounding: the matmul
     operands rounded to bf16, the products summed in fp32.
@@ -225,11 +233,16 @@ def convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
     return x + gamma * y
 
 
-def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
+def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
+                   w1t=None, w2t=None):
     """One ConvNeXt block, arguments as in ``convnext_block_reference``.
 
     On the card ``w1``/``w2`` must already be bf16 (the model stores them
-    so) and every other argument f32, all contiguous."""
+    so) and every other argument f32, all contiguous.  The kernel's GEMMs
+    read their weights K-major, as ``w1t`` = w1^T (I, C) and ``w2t`` = w2^T
+    (C, I); the model packs them once when it is built
+    (``pack_convnext_weights``), and a caller without them gets them
+    transposed here, per call."""
     if not _dispatch(x, "convnext_block"):
         return convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2,
                                         b2, gamma)
@@ -248,6 +261,10 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
     _require(w1, "w1", bf16, (C, I), dev)
     _require(b1, "b1", f32, (I,), dev)
     _require(w2, "w2", bf16, (I, C), dev)
+    if w1t is None or w2t is None:
+        w1t, w2t = pack_convnext_weights(w1, w2)
+    _require(w1t, "w1t", bf16, (I, C), dev)
+    _require(w2t, "w2t", bf16, (C, I), dev)
     M = B * T
     h = torch.empty((M, C), dtype=bf16, device=dev)
     g = torch.empty((M, I), dtype=bf16, device=dev)
@@ -259,9 +276,9 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
     _check(lib.wt_convnext_dwln(x.data_ptr(), dw.data_ptr(), dwb.data_ptr(),
                                 scale.data_ptr(), shift.data_ptr(),
                                 h.data_ptr(), B, T, C, s), "convnext dwln")
-    _check(lib.wt_convnext_gemm1(h.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    _check(lib.wt_convnext_gemm1(h.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
                                  g.data_ptr(), M, C, I, s), "convnext gemm1")
-    _check(lib.wt_convnext_gemm2(g.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+    _check(lib.wt_convnext_gemm2(g.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
                                  gamma.data_ptr(), x.data_ptr(),
                                  out.data_ptr(), M, I, C, s), "convnext gemm2")
     convnext_block.launches += 1
@@ -308,16 +325,13 @@ def encoder_front(audio: torch.Tensor, params: list, specs: list) -> torch.Tenso
     _require(pack["b"], "front b", f32, (12448,), dev)
     _require(pack["wd"], "front wd", f32, (512, 128), dev)
     _require(pack["bd"], "front bd", f32, (128,), dev)
-    x2 = torch.empty((B, T // 2, 64), dtype=f32, device=dev)
-    x3 = torch.empty((B, T // 2, 64), dtype=f32, device=dev)
     out = torch.empty((B, T // 8, 128), dtype=f32, device=dev)
     if B == 0:
         return out
     lib = load_library()
     rc = lib.wt_encoder_front(audio.data_ptr(), pack["a"].data_ptr(),
                               pack["b"].data_ptr(), pack["wd"].data_ptr(),
-                              pack["bd"].data_ptr(), x2.data_ptr(), x3.data_ptr(),
-                              out.data_ptr(), B, T, _stream())
+                              pack["bd"].data_ptr(), out.data_ptr(), B, T, _stream())
     encoder_front.launches += 1
     _check(rc, "encoder_front")
     return out
