@@ -10,10 +10,12 @@ tests/golden/bench_tokens.npz, drives the small-320 codec round trip
 (encode_infer -> codes_to_features -> decode) through the WavTokenizer entry
 points on the card and checks it against the same on the CPU, shows that the
 round trip launched every kernel, and times the stages and the kernels at
-batch 128 x 3 s.  Then it serves the model through the port's engine and
-HTTP server (concurrent requests, answers held against direct calls), and
-runs the long-audio path over four long streams; each of those paths, too,
-must launch every kernel.  Weights are random, drawn from seed 0 by the
+batch 128 x 3 s (the VQ kernel also held against its plain version on that
+batch's own encoder output, and on rows just beyond the near-tie tolerance,
+where the kernel fed operands without their TF32 tails must fail).  Then it
+serves the model through the port's engine and HTTP server (concurrent
+requests, answers held against direct calls), and runs the long-audio path
+over four long streams; each of those paths, too, must launch every kernel.  Weights are random, drawn from seed 0 by the
 port's numpy init.
 
 Every phase prints a flushed line; any failure exits non-zero.  The line
@@ -307,7 +309,8 @@ def main() -> int:
         from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
         from wavtokenizer_tpu_torch.ops import kernels as K
         from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
-                                                         load_golden, max_flips)
+                                                         load_golden, max_flips,
+                                                         near_tie_rows, nearest_two)
     except ImportError as e:
         log(f"chip_smoke: the wavtokenizer_tpu_torch package is not importable ({e})")
         return 1
@@ -334,12 +337,13 @@ def main() -> int:
     model = WavTokenizer.from_jax_params(params_np, small320, device="cuda")
     embed = model.params["quantizer"]["embed"][0]
     esq = model.params["quantizer"]["esq"][0]
+    pack = model.params["quantizer"]["pack"][0]
     gen = torch.Generator(device="cpu").manual_seed(0)
     vq_err = 0.0
     T_frames = int(TIMING_SECONDS * small320.sample_rate) // small320.hop_length
     for n in (TIMING_BATCH * T_frames, 1801):
         x = (torch.randn(n, embed.shape[1], generator=gen) * 0.1).to(dev)
-        got = K.vq_nearest(x, embed, esq)
+        got = K.vq_nearest(x, embed, esq, pack)
         want = K.vq_nearest_reference(x, embed, esq)
         torch.cuda.synchronize()
         flips = int((got != want).sum())
@@ -491,10 +495,55 @@ def main() -> int:
         flat = emb.reshape(-1, emb.shape[-1]).contiguous()
         N, D = flat.shape
         Cb = embed.shape[0]
-        vq_ms = cuda_ms(lambda: K.vq_nearest(flat, embed, esq), 20)
+        # The VQ kernel on the main path's own input (the encoder output of
+        # this batch), against its plain version: near-ties only.
+        got = K.vq_nearest(flat, embed, esq, pack)
+        want = K.vq_nearest_reference(flat, embed, esq)
+        torch.cuda.synchronize()
+        real_flips = int((got != want).sum())
+        real_gap = vq_distance_gap(flat, embed, got, want)
+        vq_err = max(vq_err, real_gap)
+        check(real_flips <= max_flips(N), f"vq_nearest on the encoder output: {real_flips} flips")
+        near, d2 = nearest_two(flat, embed)
+        log(f"[6 parity] vq_nearest on the encoder output N={N}: {real_flips} flips vs plain "
+            f"(limit {max_flips(N)}; goal 0), largest near-tie gap {real_gap:.3g}; the rows "
+            f"take {near[:, 0].unique().numel()} distinct codes, smallest gap between a row's "
+            f"two nearest codes {float(((d2[:, 1] - d2[:, 0]) / d2[:, 0]).min()):.3g} relative")
+        # Random weights send the encoder output to a few codes, too few to
+        # show the kernel's precision.  Rows placed just beyond the near-tie
+        # tolerance over N code pairs do: the kernel must get every one
+        # right, and the same kernel fed operands without their TF32 tails
+        # (x rounded to TF32 before the call, the pack's tail zeroed) must not.
+        rows = near_tie_rows(embed, N)
+        near, d2 = nearest_two(rows, embed)
+        truth = near[:, 0].int()
+        tie_gap = float(((d2[:, 1] - d2[:, 0]) / d2[:, 0]).min())
+        heads = K.pack_vq_codebook(rows)[0]
+        no_tail = torch.stack([pack[0], torch.zeros_like(pack[1])])
+        plain_rows = K.vq_nearest_reference(rows, embed, esq)
+        runs = {"kernel": K.vq_nearest(rows, embed, esq, pack),
+                "x tail dropped": K.vq_nearest(heads, embed, esq, pack),
+                "codebook tail dropped": K.vq_nearest(rows, embed, esq, no_tail),
+                "both tails dropped (1xTF32)": K.vq_nearest(heads, embed, esq, no_tail)}
+        torch.cuda.synchronize()
+        wrong = {k: int((v != truth).sum()) for k, v in runs.items()}
+        plain_wrong = int((plain_rows != truth).sum())
+        log(f"[6 resolution] N={N} rows whose two nearest codes lie {tie_gap:.3g} relative "
+            f"apart or more, over {truth.unique().numel()} codes; rows not given their nearest "
+            f"code: plain {plain_wrong}, " + ", ".join(f"{k} {v}" for k, v in wrong.items()))
+        check(tie_gap > 1e-5, f"near-tie rows: smallest gap {tie_gap:.3g} is a near-tie")
+        check(plain_wrong == 0 and wrong["kernel"] == 0,
+              f"near-tie rows: plain {plain_wrong}, kernel {wrong['kernel']} rows wrong")
+        check(all(v > 0 for k, v in wrong.items() if k != "kernel"),
+              f"near-tie rows do not tell a dropped product term apart: {wrong}")
+        vq_ms = cuda_ms(lambda: K.vq_nearest(flat, embed, esq, pack), 20)
         vq_plain = cuda_ms(lambda: K.vq_nearest_reference(flat, embed, esq), 20)
-        vq_ops_s = 2 * N * Cb * D / H100_FP32_FLOPS
-        vq_bytes_s = (N * D * 4 + Cb * D * 4 + Cb * 4 + N * 4) / H100_BYTES
+        # The products as 3xTF32 on the tensor cores (three TF32 products per
+        # multiply-add, the kernel's route to fp32-class accuracy); beside it
+        # the same work as fp32 FMAs on the CUDA cores.
+        vq_ops_s = 3 * 2 * N * Cb * D / H100_TF32_FLOPS
+        vq_fp32_only = 2 * N * Cb * D / H100_FP32_FLOPS * 1e3
+        vq_bytes_s = (N * D * 4 + pack.numel() * 4 + Cb * 4 + N * 4) / H100_BYTES
         vq_bound = max(vq_ops_s, vq_bytes_s) * 1e3
         vq_by = "operations" if vq_ops_s > vq_bytes_s else "bytes"
 
@@ -534,13 +583,18 @@ def main() -> int:
         f"({front_by}; {front_fp32_only:.3f} ms were every product an fp32 FMA); "
         f"library: none (no single PyTorch call); card {card}")
     log(f"[6 timing] vq_nearest N={N}: kernel {vq_ms:.3f} ms, plain {vq_plain:.3f} ms, "
-        f"bound {vq_bound:.3f} ms ({vq_by}); convnext_block M={M}: kernel {cnx_ms:.3f} ms, "
+        f"bound {vq_bound:.3f} ms ({vq_by}, 3xTF32; {vq_fp32_only:.3f} ms were every product "
+        f"an fp32 FMA); convnext_block M={M}: kernel {cnx_ms:.3f} ms, "
         f"plain {cnx_plain:.3f} ms, bound {cnx_bound:.3f} ms; cuBLAS bf16 GEMM pair "
         f"alone {gemm_ms:.3f} ms; card {card}")
 
-    # Per-launch split from a torch.profiler trace: one convnext_block and
-    # one encoder_front call at the timing shapes, then one round trip.
+    # Per-launch split from a torch.profiler trace: one vq_nearest, one
+    # convnext_block and one encoder_front call at the timing shapes, then
+    # one round trip.
     with torch.inference_mode():
+        split, _ = traced(lambda: K.vq_nearest(flat, embed, esq, pack))
+        log(f"[6 profile] vq_nearest N={N}, device time by kernel: "
+            f"{kernel_lines(split, 4)}; card {card}")
         split, _ = traced(lambda: K.convnext_block(*bargs))
         log(f"[6 profile] convnext_block M={M}, device time by kernel: "
             f"{kernel_lines(split, 8)}; card {card}")

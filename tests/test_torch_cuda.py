@@ -51,6 +51,79 @@ def test_vq_nearest_ties_go_to_the_lowest_index(cuda):
     assert K.vq_nearest(x, e).tolist() == [7, 7, 7]
 
 
+def _assert_near_ties(x, e, got, want):
+    """Every differing id is a near-tie: its two distances, in float64,
+    within 1e-5 relative."""
+    bad = torch.nonzero(got != want).flatten()
+    d_got = ((x[bad].double() - e[got[bad].long()].double()) ** 2).sum(1)
+    d_want = ((x[bad].double() - e[want[bad].long()].double()) ** 2).sum(1)
+    assert bool(((d_got - d_want).abs() <= 1e-5 * d_want).all())
+    return len(bad)
+
+
+def test_vq_nearest_near_tie_stress(cuda):
+    """Copies spread over the codebook (so over different code tiles and
+    blocks, combined by the 64-bit atomicMax): exact copies of a row's
+    nearest code, which must resolve to the lowest index, also for rows
+    equal to the code (distance zero), and copies perturbed by one ulp,
+    where either answer is a near-tie."""
+    g = torch.Generator().manual_seed(3)
+    C, D = 4096, 512
+    e = torch.randn(C, D, generator=g) * 0.1
+    for src, dst in ((5, (1000, 2100, 4095)), (300, (301, 3000))):
+        for d in dst:
+            e[d] = e[src]
+    e[777] = torch.nextafter(e[40], torch.full_like(e[40], 1.0))
+    e[3333] = torch.nextafter(e[41], torch.full_like(e[41], -1.0))
+    x = torch.randn(600, D, generator=g) * 0.1
+    x[0], x[1], x[2] = e[5], e[300], e[5] + 1e-3        # distance 0 to codes 5, 300
+    # Rows near (not on) codes 40 and 41, whose one-ulp copies are near-ties
+    # for them; on a code, fp32 cannot rank distances ~1e-16 at all.
+    x[3] = e[40] + 0.05 * torch.randn(D, generator=g)
+    x[4] = e[41] + 0.05 * torch.randn(D, generator=g)
+    x, e = x.to(cuda), e.to(cuda)
+    got = K.vq_nearest(x, e)
+    want = K.vq_nearest_reference(x, e)
+    torch.cuda.synchronize()
+    assert got[:3].tolist() == [5, 300, 5]
+    assert got[3].item() in (40, 777) and got[4].item() in (41, 3333)
+    flips = _assert_near_ties(x, e, got, want)
+    assert flips <= max(2, 600 // 400)
+
+
+def test_vq_nearest_with_and_without_the_build_time_pack(cuda):
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn(1000, 512, generator=g) * 0.1).to(cuda)
+    e = (torch.randn(4096, 512, generator=g) * 0.1).to(cuda)
+    esq = (e * e).sum(1)
+    pack = K.pack_vq_codebook(e)
+    before = K.vq_nearest.launches
+    with_pack = K.vq_nearest(x, e, esq, pack)
+    without = K.vq_nearest(x, e)
+    torch.cuda.synchronize()
+    assert K.vq_nearest.launches == before + 2
+    assert torch.equal(with_pack, without)
+    with pytest.raises(ValueError, match="pack"):
+        K.vq_nearest(x, e, esq, pack[:, :100])
+
+
+def test_vq_nearest_refuses_a_row_stride_tma_cannot_take(cuda):
+    with pytest.raises(ValueError, match="D % 4"):
+        K.vq_nearest(torch.zeros(4, 6, device=cuda), torch.zeros(8, 6, device=cuda))
+
+
+def test_vq_nearest_at_the_main_path_shape(cuda):
+    """N = 28 800 (batch 128 x 3 s of small-320), D = 512, C = 4096."""
+    g = torch.Generator().manual_seed(28800)
+    x = (torch.randn(28800, 512, generator=g) * 0.1).to(cuda)
+    e = (torch.randn(4096, 512, generator=g) * 0.1).to(cuda)
+    got = K.vq_nearest(x, e)
+    want = K.vq_nearest_reference(x, e)
+    torch.cuda.synchronize()
+    assert got.shape == (28800,) and int(got.min()) >= 0 and int(got.max()) < 4096
+    assert _assert_near_ties(x, e, got, want) <= max(2, 28800 // 400)
+
+
 # M = 300 rows (not a multiple of the 128-row tile); the model's widths at a
 # small B x T' (M = 150); C = 96, I = 352: N and K of both GEMMs off the
 # 128-wide tile and the 64-deep K step, so TMA zero-fills and the epilogue

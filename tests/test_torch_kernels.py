@@ -110,6 +110,18 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         K.load_library()
 
 
+def test_library_name_hashes_the_shared_header(monkeypatch, tmp_path):
+    """A library is named by its source and every csrc/*.cuh, so an edit to
+    the shared header rebuilds it instead of loading a stale one."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(K, "CSRC", str(tmp_path))
+    before = K._so_path("k.cu")
+    assert before == K._so_path("k.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert K._so_path("k.cu") != before
+
+
 def test_entry_points_default_to_cuda():
     from wavtokenizer_tpu_torch import WavTokenizer, WavTokenizerSpec
     model = WavTokenizer({}, WavTokenizerSpec())

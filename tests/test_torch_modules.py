@@ -27,6 +27,7 @@ from wavtokenizer_tpu_torch.models import seanet as ts
 from wavtokenizer_tpu_torch.models import vocos as tv
 from wavtokenizer_tpu_torch.models import wavtokenizer as tw
 from wavtokenizer_tpu_torch.ops.conv import sconv1d as t_sconv1d
+from wavtokenizer_tpu_torch.ops.kernels import pack_vq_codebook
 from wavtokenizer_tpu_torch.ops.lstm import lstm_from_layers, slstm as t_slstm
 from wavtokenizer_tpu_torch.ops.spectral import istft_same as t_istft_same
 
@@ -147,7 +148,8 @@ def test_vq_infer_and_codes_to_features_match_jax():
     x = rng.normal(size=(3, 11, 16)).astype(np.float32)
     q_want, c_want, _ = jq.vq_infer({"embed": jnp.asarray(embed)}, jq.VQConfig(), jnp.asarray(x))
     e = torch.from_numpy(embed)
-    q_got, c_got = tq.vq_infer({"embed": e, "esq": (e * e).sum(-1)}, torch.from_numpy(x))
+    q_got, c_got = tq.vq_infer({"embed": e, "esq": (e * e).sum(-1),
+                                "pack": pack_vq_codebook(e[0])[None]}, torch.from_numpy(x))
     np.testing.assert_array_equal(c_got.numpy(), np.asarray(c_want))
     np.testing.assert_array_equal(q_got.numpy(), np.asarray(q_want))
     f_want = jq.codes_to_features({"embed": jnp.asarray(embed)}, c_want)

@@ -28,7 +28,7 @@ from ..models import wavtokenizer as wt
 from ..models.seanet import encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
 from ..ops.encoder_front import front_geometry_matches, prepare_front_weights
-from ..ops.kernels import pack_convnext_weights
+from ..ops.kernels import pack_convnext_weights, pack_vq_codebook
 from ..ops.lstm import lstm_from_layers
 from .config import spec_from_config
 
@@ -117,13 +117,15 @@ def from_jax_params(params_np: dict, spec: WavTokenizerSpec, device="cuda") -> d
     """The JAX package's param pytree (numpy; ``models/init.py`` or
     ``checkpoint/convert.py`` output, channel-last kernels) -> this package's
     params on ``device``: conv weights (C_out, C_in, K), the ConvNeXt matmul
-    weights in bf16, the encoder LSTM as an ``nn.LSTM``, |E|^2 per code.
+    weights in bf16, the encoder LSTM as an ``nn.LSTM``, |E|^2 per code and
+    the codebook split for the VQ kernel.
     The SEANet decoder's weights are not carried over (not run yet)."""
     device = torch.device(device)
     embed = _t(params_np["quantizer"]["embed"], device)
     return {
         "encoder": _encoder(params_np["encoder"], spec, device),
-        "quantizer": {"embed": embed, "esq": (embed * embed).sum(-1)},
+        "quantizer": {"embed": embed, "esq": (embed * embed).sum(-1),
+                      "pack": torch.stack([pack_vq_codebook(e) for e in embed])},
         "backbone": _backbone(params_np["backbone"], device),
         "head": {"out": {"weight": _t(params_np["head"]["out"]["weight"], device),
                          "bias": _t(params_np["head"]["out"]["bias"], device)}},

@@ -47,18 +47,21 @@
 // The tensor maps are encoded on the host for every call (h and g are
 // allocated per call) through cuTensorMapEncodeTiled, a driver-API call
 // fetched with cudaGetDriverEntryPoint so that the library links only the
-// CUDA runtime, and passed as __grid_constant__ kernel parameters.
+// CUDA runtime, and passed as __grid_constant__ kernel parameters.  The
+// mbarrier, TMA and descriptor helpers are shared with vq_nearest.cu
+// (hopper.cuh).
 //
 // Plain C interface, bound from Python with ctypes
 // (wavtokenizer_tpu_torch/ops/kernels.py::convnext_block).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 // ---------------------------------------------------------------- (a)
 
@@ -152,65 +155,6 @@ static_assert(BM == BN, "one box shape serves A and B");
 
 enum Epilogue { kGelu = 0, kResidual = 1 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of the given parity to complete.  A wait that has not
-// completed after 10 s traps, so a broken pipeline fails the launch instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) start = global_ns();
-    else if (global_ns() - start > 10000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Box (64 K-columns x 128 rows) at (k0, r0) of a 2-D tensor map into smem.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int k0, int r0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(r0)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile written by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO),
-// layout type 1 (SWIZZLE_128B); LBO is unused for this layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t desc_a,
                                           uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -244,11 +188,6 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // C (M, N) = A (M, K) @ B (K, N), with A given as the tensor map of the
 // (M, K) bf16 matrix and B as that of its transpose (N, K), both K-major.
 template <int EPI>
@@ -273,7 +212,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -313,18 +252,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_wait(full + 8 * s, (it / STAGES) & 1);
       const uint32_t a = ring + s * STAGE_BYTES + wg * 64 * 128;
       const uint32_t b = ring + s * STAGE_BYTES + TILE_BYTES;
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BK / 16; ++k)   // 16 K-columns = 32 bytes a step
         wgmma_128(d, smem_desc(a + 32 * k), smem_desc(b + 32 * k), 1);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       // Keep this k-block's products in flight; the previous one is done, so
       // its stage goes back to the producer.
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_wait<1>();
       fence_acc(d);
       if (kb > 0 && threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_acc(d);
     if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
 
@@ -359,50 +298,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // Tensor map of a row-major (rows, K) bf16 matrix: boxes of 64 K-columns x
 // 128 rows, 128-byte swizzle, zeros past the edges.  Needs K % 8 == 0.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int K) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {BK, BM};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, K, BK, BM);
 }
-
-// Error code for a tensor map the driver refused (not a cudaError value).
-constexpr int kMapError = 10000;
 
 template <int EPI>
 int launch_gemm(const void* a, const void* bt, const float* bias, const float* gamma,
@@ -416,13 +316,8 @@ int launch_gemm(const void* a, const void* bt, const float* bias, const float* g
   }
   CUtensorMap map_a, map_b;
   if (!make_map(&map_a, a, M, K) || !make_map(&map_b, bt, N, K)) return kMapError;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int sms = 0;
+  if (const int e = sm_count(&sms)) return e;
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
   const int grid = tiles < 2 * sms ? tiles : 2 * sms;   // two blocks per SM
   gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(map_a, map_b, bias, gamma,

@@ -2,7 +2,8 @@
 
 Port of the inference part of ``wavtokenizer_tpu/models/quantize.py``
 (ref encoder/quantization/core_vq.py + vq.py).  Params:
-{"embed": (n_q, bins, dim) f32, "esq": (n_q, bins) f32 = |E|^2 per code}.
+{"embed": (n_q, bins, dim) f32, "esq": (n_q, bins) f32 = |E|^2 per code,
+"pack": (n_q, 2, bins, dim) f32, the VQ kernel's split codebook}.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def vq_infer(params: dict, x: torch.Tensor):
     x (B, T, D) -> (quantized (B, T, D), codes (1, B, T) int32)."""
     B, T, D = x.shape
     idx = nearest_codebook_indices(x.reshape(B * T, D), params["embed"][0],
-                                   params["esq"][0]).reshape(B, T)
+                                   params["esq"][0], params["pack"][0]).reshape(B, T)
     return codebook_lookup(idx, params["embed"][0]), idx[None]
 
 

@@ -3,9 +3,10 @@
 Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
 
 * ``vq_nearest`` (``csrc/vq_nearest.cu``) replaces the Pallas kernel
-  ``wavtokenizer_tpu/ops/kernels.py::vq_nearest_fused``: the fp32 distance
+  ``wavtokenizer_tpu/ops/kernels.py::vq_nearest_fused``: the distance
   ``-(|x|^2 - 2 x.E^T + |E|^2)`` and its argmax in one pass, the (N, C)
-  distance matrix never written out.
+  distance matrix never written out; the product is 3xTF32 ``wgmma``
+  (fp32-class accuracy) with the codebook split once at model build.
 * ``convnext_block`` (``csrc/convnext.cu``) replaces
   ``convnext_block_fused``: depthwise conv k7 -> (Ada)LayerNorm -> Linear ->
   exact GELU -> Linear -> layer scale -> residual, with bf16 matmul operands
@@ -17,7 +18,8 @@ Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
   3xTF32 on the tensor cores (fp32-class accuracy).
 
 Each source is built at first use by its own ``nvcc`` call, all started
-together, into a shared library with a plain C interface (``_build/`` next
+together (the shared header ``csrc/hopper.cuh`` is part of every source's
+hash), into a shared library with a plain C interface (``_build/`` next
 to this package, listed in ``.gitignore``) and loaded with ``ctypes``; no
 PyTorch header is compiled.
 
@@ -52,7 +54,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # pointer and the stream, c_int for every int).
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "vq_nearest.cu": {"wt_vq_nearest": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp]},
+    "vq_nearest.cu": {"wt_vq_nearest": [_vp] * 5 + [_i, _i, _i, _vp]},
     "convnext.cu": {
         "wt_convnext_dwln": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
         "wt_convnext_gemm1": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
@@ -80,8 +82,13 @@ def _nvcc() -> str:
 
 
 def _so_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """The library of one source, named by the hash of the source and of
+    every shared header beside it, so that an edit to either rebuilds it."""
+    h = hashlib.sha256()
+    for name in [source] + sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{source[:-3]}_{digest}.so")
 
 
@@ -178,26 +185,52 @@ def vq_nearest_reference(x: torch.Tensor, embed: torch.Tensor,
     return dist.argmax(1).to(torch.int32)
 
 
-def vq_nearest(x: torch.Tensor, embed: torch.Tensor,
-               esq: torch.Tensor | None = None) -> torch.Tensor:
+def _tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), half away from
+    zero: half a TF32 ulp added to the bits, the 13 low bits cleared, as the
+    kernel does it."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_vq_codebook(embed: torch.Tensor) -> torch.Tensor:
+    """embed (C, D) -> (2, C, D) f32: the kernel's B operand, the codebook's
+    TF32 head ``hi`` and tail ``lo = tf32(e - hi)``, so e = hi + lo to
+    ~2^-22 relative.  Made once when the model is built."""
+    hi = _tf32_round(embed)
+    return torch.stack([hi, _tf32_round(embed.float() - hi)])
+
+
+def vq_nearest(x: torch.Tensor, embed: torch.Tensor, esq: torch.Tensor | None = None,
+               pack: torch.Tensor | None = None) -> torch.Tensor:
     """x (N, D) f32, embed (C, D) f32 -> (N,) int32 nearest-code ids.
 
     ``esq`` (C,) = |E|^2 per code, computed here when not given (the JAX
-    wrapper computes it outside its kernel too)."""
+    wrapper computes it outside its kernel too).  On the card the kernel
+    reads the codebook as ``pack`` = ``pack_vq_codebook(embed)``; the model
+    makes it when it is built, and a caller without it gets it here, per
+    call.  The kernel needs D > 0 and D % 4 == 0 (TMA's 16-byte row
+    stride)."""
     if not _dispatch(x, "vq_nearest"):
         return vq_nearest_reference(x, embed, esq)
     N, D = x.shape
     C = embed.shape[0]
+    if D % 4 or D == 0 or C == 0:
+        raise ValueError(f"vq_nearest kernel needs D % 4 == 0 and D, C > 0; got D={D}, C={C}")
     if esq is None:
         esq = (embed * embed).sum(1)
+    if pack is None:
+        pack = pack_vq_codebook(embed)
     _require(x, "x", torch.float32, (N, D), x.device)
     _require(embed, "embed", torch.float32, (C, D), x.device)
     _require(esq, "esq", torch.float32, (C,), x.device)
+    _require(pack, "pack", torch.float32, (2, C, D), x.device)
     out = torch.empty(N, dtype=torch.int32, device=x.device)
     if N == 0:
         return out
+    keys = torch.empty(N, dtype=torch.int64, device=x.device)
     lib = load_library()
-    rc = lib.wt_vq_nearest(x.data_ptr(), embed.data_ptr(), esq.data_ptr(),
+    rc = lib.wt_vq_nearest(x.data_ptr(), pack.data_ptr(), esq.data_ptr(), keys.data_ptr(),
                            out.data_ptr(), N, C, D, _stream())
     vq_nearest.launches += 1
     _check(rc, "vq_nearest")

@@ -14,9 +14,11 @@ from .kernels import vq_nearest
 
 
 def nearest_codebook_indices(x: torch.Tensor, embed: torch.Tensor,
-                             esq: torch.Tensor | None = None) -> torch.Tensor:
-    """x (N, D), embed (C, D) -> (N,) int32 ids.  ``esq`` = |E|^2 per code."""
-    return vq_nearest(x.float().contiguous(), embed, esq)
+                             esq: torch.Tensor | None = None,
+                             pack: torch.Tensor | None = None) -> torch.Tensor:
+    """x (N, D), embed (C, D) -> (N,) int32 ids.  ``esq`` = |E|^2 per code,
+    ``pack`` = the kernel's split codebook (``kernels.pack_vq_codebook``)."""
+    return vq_nearest(x.float().contiguous(), embed, esq, pack)
 
 
 def codebook_lookup(indices: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
