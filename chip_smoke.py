@@ -15,7 +15,15 @@ batch's own encoder output, and on rows just beyond the near-tie tolerance,
 where the kernel fed operands without their TF32 tails must fail).  Then it
 serves the model through the port's engine and HTTP server (concurrent
 requests, answers held against direct calls), and runs the long-audio path
-over four long streams; each of those paths, too, must launch every kernel.  Weights are random, drawn from seed 0 by the
+over four long streams; each of those paths, too, must launch every kernel.
+Then the residual-VQ path: the EnCodec 24 kHz model (32 chained VQ-kernel
+launches per encode, each layer held against the plain search on the
+chain's own residual; codes and waveform against the CPU; stage times at
+batch 64 x 3 s; the near-tie rows on its codebook) and the 48 kHz stereo
+model (four 1 s segments, the last ragged); small-320's training-style
+encode, copy synthesis and SEANet-only decode through the facade; and
+tools/compress.py as a subprocess, with the LM and fixed-rate, whose ids
+must survive the round trip.  Weights are random, drawn from seed 0 by the
 port's numpy init.
 
 Every phase prints a flushed line; any failure exits non-zero.  The line
@@ -143,6 +151,44 @@ def vq_distance_gap(x, embed, a, b) -> float:
 
 def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def resolution_check(K, embed, esq, pack, n: int) -> dict:
+    """Rows placed just beyond the near-tie tolerance over n code pairs
+    (``utils/golden.py::near_tie_rows``): the kernel and the plain version
+    must get every row right, and the same kernel fed operands without their
+    TF32 tails (x rounded to TF32 before the call, the pack's tail zeroed)
+    must not."""
+    from wavtokenizer_tpu_torch.utils.golden import near_tie_rows, nearest_two
+
+    rows = near_tie_rows(embed, n)
+    near, d2 = nearest_two(rows, embed)
+    truth = near[:, 0].int()
+    tie_gap = float(((d2[:, 1] - d2[:, 0]) / d2[:, 0]).min())
+    heads = K.pack_vq_codebook(rows)[0]
+    no_tail = torch.stack([pack[0], torch.zeros_like(pack[1])])
+    plain_rows = K.vq_nearest_reference(rows, embed, esq)
+    runs = {"kernel": K.vq_nearest(rows, embed, esq, pack),
+            "x tail dropped": K.vq_nearest(heads, embed, esq, pack),
+            "codebook tail dropped": K.vq_nearest(rows, embed, esq, no_tail),
+            "both tails dropped (1xTF32)": K.vq_nearest(heads, embed, esq, no_tail)}
+    torch.cuda.synchronize()
+    wrong = {k: int((v != truth).sum()) for k, v in runs.items()}
+    plain_wrong = int((plain_rows != truth).sum())
+    check(tie_gap > 1e-5, f"near-tie rows: smallest gap {tie_gap:.3g} is a near-tie")
+    check(plain_wrong == 0 and wrong["kernel"] == 0,
+          f"near-tie rows: plain {plain_wrong}, kernel {wrong['kernel']} rows wrong")
+    check(all(v > 0 for k, v in wrong.items() if k != "kernel"),
+          f"near-tie rows do not tell a dropped product term apart: {wrong}")
+    return {"n": n, "C": embed.shape[0], "D": embed.shape[1], "gap": tie_gap,
+            "codes": truth.unique().numel(), "plain": plain_wrong, "wrong": wrong}
+
+
+def resolution_line(res: dict) -> str:
+    return (f"N={res['n']} rows (C={res['C']}, D={res['D']}) whose two nearest codes lie "
+            f"{res['gap']:.3g} relative apart or more, over {res['codes']} codes; rows not "
+            f"given their nearest code: plain {res['plain']}, "
+            + ", ".join(f"{k} {v}" for k, v in res["wrong"].items()))
 
 
 # Served and chunked audio against the direct calls on the same card: the same
@@ -298,6 +344,276 @@ def long_audio_phase(model, spec, K) -> dict:
             "launches": launches}
 
 
+def vq_bound_of(N: int, C: int, D: int) -> tuple:
+    """Least time of one VQ search (ms) and what bounds it: the products as
+    3xTF32 on the tensor cores (three TF32 products per multiply-add, the
+    kernel's route to fp32-class accuracy), or the bytes (x, the split
+    codebook, |E|^2 read once, the ids written once)."""
+    ops_s = 3 * 2 * N * C * D / H100_TF32_FLOPS
+    bytes_s = (N * D * 4 + 2 * C * D * 4 + C * 4 + N * 4) / H100_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
+
+
+def rvq_replay(K, quantizer, emb: torch.Tensor, codes: torch.Tensor) -> tuple:
+    """The kernel's residual chain replayed with the plain version: layer q's
+    plain search on the residual the kernel's own codes of layers < q left.
+    Returns the flips per layer (each checked to be a near-tie) and the
+    largest float64 gap among them."""
+    residual = emb.reshape(-1, emb.shape[-1]).float()
+    flips, gap = [], 0.0
+    for q in range(codes.shape[0]):
+        e = quantizer["embed"][q]
+        got = codes[q].reshape(-1)
+        want = K.vq_nearest_reference(residual, e, quantizer["esq"][q])
+        flips.append(int((got != want).sum()))
+        gap = max(gap, vq_distance_gap(residual, e, got, want))
+        residual = residual - e[got.long()]
+    return flips, gap
+
+
+def encodec_phase(K) -> dict:
+    """Phase 9: the EnCodec 24 kHz model (32 quantizers) and the 48 kHz
+    stereo model (16 quantizers, 1 s segments) at full width through the
+    port's encodec.encode/decode/forward, against the CPU."""
+    from wavtokenizer_tpu_torch.api.pretrained import encodec_from_jax_params
+    from wavtokenizer_tpu_torch.models import encodec as E
+    from wavtokenizer_tpu_torch.models import quantize, seanet
+    from wavtokenizer_tpu_torch.models.init import init_encodec
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.utils.golden import max_flips
+
+    out = {}
+    cfg = E.encodec_model_24khz_config()
+    params_np = init_encodec(cfg, seed=0)
+    gpu = encodec_from_jax_params(params_np, cfg, "cuda")
+    cpu = encodec_from_jax_params(params_np, cfg, "cpu")
+    sr, n_q = cfg.sample_rate, cfg.vq.n_q
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor((rng.normal(size=(8, 1, 3 * sr)) * 0.1).astype(np.float32))
+    xg = x.to("cuda")
+    K.reset_launch_counts()
+    frames = E.encode(gpu, cfg, xg)
+    torch.cuda.synchronize()
+    out["launches_per_encode"] = launches = launch_counts(K)
+    check(launches == {"vq_nearest": n_q, "convnext_block": 0, "encoder_front": 0},
+          f"encodec 24k encode launches {launches}, expected {n_q} vq_nearest only")
+    codes = frames[0][0]                                  # (B, 32, T')
+    check(len(frames) == 1 and tuple(codes.shape) == (8, n_q, 3 * cfg.frame_rate),
+          f"encodec 24k codes shape {tuple(codes.shape)}")
+    # Layer-conditioned: the plain search on the kernel chain's own residual.
+    with torch.inference_mode(), full_fp32():
+        emb = seanet.seanet_encode(gpu["encoder"], cfg.seanet, xg.transpose(1, 2))
+        chain = quantize.vq_encode(gpu["quantizer"], cfg.vq, emb)
+        flips, gap = rvq_replay(K, gpu["quantizer"], emb, chain)
+    torch.cuda.synchronize()
+    out["same_card"] = int((chain.transpose(0, 1) != codes).sum())
+    out["flips"], out["gap"] = flips, gap
+    frames_cpu = E.encode(cpu, cfg, x)
+    codes_cpu = frames_cpu[0][0]
+    per_layer = (codes.cpu() != codes_cpu).sum(dim=(0, 2)).tolist()
+    n0 = codes[:, 0].numel()
+    check(per_layer[0] <= max_flips(n0), f"encodec 24k layer-0 codes vs CPU: {per_layer[0]} differ")
+    out["cpu_layers"] = per_layer
+    wave = E.decode(gpu, cfg, frames)
+    wave_cpu = E.decode(cpu, cfg, [(codes.cpu(), None)])
+    torch.cuda.synchronize()
+    check(tuple(wave.shape) == tuple(x.shape) and bool(torch.isfinite(wave).all()),
+          f"encodec 24k waveform shape {tuple(wave.shape)} or non-finite values")
+    out["wave_rel"] = rel_max(wave.cpu(), wave_cpu)
+    check(out["wave_rel"] <= 1e-3, f"encodec 24k waveform card vs CPU rel-max {out['wave_rel']:.3g}")
+    out["distinct"] = [int(codes[:, q].unique().numel()) for q in (0, n_q - 1)]
+
+    # Timing at B=64 x 3 s.
+    xt = torch.as_tensor((rng.normal(size=(64, 1, 3 * sr)) * 0.1).astype(np.float32)).cuda()
+    q = gpu["quantizer"]
+    with torch.inference_mode():
+        with full_fp32():
+            emb_t = seanet.seanet_encode(gpu["encoder"], cfg.seanet, xt.transpose(1, 2))
+            codes_t = quantize.vq_encode(q, cfg.vq, emb_t)
+        feats_t = quantize.vq_decode(q, codes_t)
+
+        def enc():
+            with full_fp32():
+                seanet.seanet_encode(gpu["encoder"], cfg.seanet, xt.transpose(1, 2))
+
+        def rvq():
+            with full_fp32():
+                quantize.vq_encode(q, cfg.vq, emb_t)
+
+        stages = {"encoder": cuda_ms(enc, 3), "rvq (32 layers)": cuda_ms(rvq, 10),
+                  "decoder": cuda_ms(lambda: seanet.seanet_decode(
+                      gpu["decoder"], cfg.seanet, quantize.vq_decode(q, codes_t)), 3)}
+        rt = cuda_ms(lambda: E.forward(gpu, cfg, xt), 3)
+        flat = emb_t.reshape(-1, emb_t.shape[-1]).contiguous()
+        N, D = flat.shape
+        C = q["embed"].shape[1]
+        got = K.vq_nearest(flat, q["embed"][0], q["esq"][0], q["pack"][0])
+        want = K.vq_nearest_reference(flat, q["embed"][0], q["esq"][0])
+        torch.cuda.synchronize()
+        out["vq_err"] = vq_distance_gap(flat, q["embed"][0], got, want)
+        out["vq_flips"] = int((got != want).sum())
+        out["vq_ms"] = cuda_ms(lambda: K.vq_nearest(flat, q["embed"][0], q["esq"][0],
+                                                    q["pack"][0]), 50)
+        out["vq_plain_ms"] = cuda_ms(lambda: K.vq_nearest_reference(flat, q["embed"][0],
+                                                                     q["esq"][0]), 50)
+        split, idle = traced(lambda: E.forward(gpu, cfg, xt))
+    del feats_t
+    out["vq_bound_ms"], out["vq_bound_by"] = vq_bound_of(N, C, D)
+    out["N"], out["C"], out["D"] = N, C, D
+    out["stages"], out["rt_ms"], out["rtf"] = stages, rt, 64 * 3.0 / (rt / 1e3)
+    out["idle"], out["profile"] = idle, kernel_lines(split, 8)
+    out["resolution"] = resolution_check(K, q["embed"][0], q["esq"][0], q["pack"][0], N)
+
+    # EnCodec 48 kHz, stereo, B=2 x 3.5 s: four 1 s segments, the last ragged.
+    cfg48 = E.encodec_model_48khz_config()
+    p48 = init_encodec(cfg48, seed=0)
+    gpu48 = encodec_from_jax_params(p48, cfg48, "cuda")
+    cpu48 = encodec_from_jax_params(p48, cfg48, "cpu")
+    x48 = torch.as_tensor((rng.normal(size=(2, 2, int(3.5 * cfg48.sample_rate))) * 0.1)
+                          .astype(np.float32))
+    K.reset_launch_counts()
+    fr48 = E.encode(gpu48, cfg48, x48.cuda())
+    torch.cuda.synchronize()
+    seg = [int(c.shape[-1]) for c, _ in fr48]
+    v48 = K.vq_nearest.launches
+    check(len(fr48) == 4 and v48 == 16 * len(fr48),
+          f"encodec 48k: {len(fr48)} segments, {v48} vq_nearest launches")
+    fr48_cpu = E.encode(cpu48, cfg48, x48)
+    per_seg = []
+    for (c, s_), (cc, sc) in zip(fr48, fr48_cpu):
+        d = (c.cpu() != cc).sum(dim=(0, 2)).tolist()
+        check(d[0] <= max_flips(c[:, 0].numel()), f"encodec 48k layer-0 codes vs CPU: {d}")
+        check(rel_max(s_.cpu(), sc) <= 1e-5, "encodec 48k segment scales differ")
+        per_seg.append(sum(d))
+    w48 = E.decode(gpu48, cfg48, fr48)[:, :, :x48.shape[-1]]
+    w48_cpu = E.decode(cpu48, cfg48, [(c.cpu(), s_.cpu()) for c, s_ in fr48])[:, :, :x48.shape[-1]]
+    torch.cuda.synchronize()
+    check(tuple(w48.shape) == tuple(x48.shape) and bool(torch.isfinite(w48).all()),
+          f"encodec 48k waveform shape {tuple(w48.shape)} or non-finite values")
+    out["w48_rel"] = rel_max(w48.cpu(), w48_cpu)
+    check(out["w48_rel"] <= 1e-3, f"encodec 48k waveform card vs CPU rel-max {out['w48_rel']:.3g}")
+    out["seg_frames"], out["seg_cpu_flips"], out["v48"] = seg, per_seg, v48
+    with torch.inference_mode():
+        out["rt48_ms"] = cuda_ms(lambda: E.forward(gpu48, cfg48, x48.cuda()), 3)
+    return out
+
+
+def facade_phase(model, cpu, spec, K) -> dict:
+    """Phase 10: small-320's training-style encode, copy synthesis and
+    SEANet-only decode through the WavTokenizer facade."""
+    from wavtokenizer_tpu_torch.utils.golden import golden_clip
+
+    out = {}
+    clip = golden_clip(spec)
+    feats_i, codes_i = model.encode_infer(clip)
+    K.reset_launch_counts()
+    feats_f, codes_f = model.encode(clip)
+    torch.cuda.synchronize()
+    out["encode_launches"] = launch_counts(K)
+    check(out["encode_launches"] == {"vq_nearest": 1, "convnext_block": 0, "encoder_front": 1},
+          f"encode launches {out['encode_launches']}")
+    out["encode_diff"] = int((codes_f != codes_i).sum())
+    check(out["encode_diff"] == 0 and bool(torch.equal(feats_f, feats_i)),
+          f"encode vs encode_infer: {out['encode_diff']} codes differ")
+    K.reset_launch_counts()
+    wave = model(clip, 0)
+    torch.cuda.synchronize()
+    out["call_launches"] = launch_counts(K)
+    n_blocks = spec.backbone.num_layers
+    check(out["call_launches"] == {"vq_nearest": 1, "convnext_block": n_blocks,
+                                   "encoder_front": 1},
+          f"__call__ launches {out['call_launches']}")
+    out["call_rel"] = rel_max(wave, model.decode(feats_i, 0))
+    check(out["call_rel"] <= SAME_CARD_WAVE_TOL, f"__call__ rel-max {out['call_rel']:.3g}")
+    sd = model.seanet_only_decode(feats_i)
+    sd_cpu = cpu.seanet_only_decode(feats_i.cpu())
+    torch.cuda.synchronize()
+    check(tuple(sd.shape) == clip.shape and bool(torch.isfinite(sd).all()),
+          f"seanet_only_decode shape {tuple(sd.shape)}")
+    out["sod_rel"] = rel_max(sd.cpu(), sd_cpu)
+    check(out["sod_rel"] <= 1e-3, f"seanet_only_decode card vs CPU rel-max {out['sod_rel']:.3g}")
+    feats = torch.randn(TIMING_BATCH, spec.vq.dimension,
+                        int(TIMING_SECONDS * spec.sample_rate) // spec.hop_length,
+                        generator=torch.Generator().manual_seed(10)).cuda() * 0.05
+    out["sod_ms"] = cuda_ms(lambda: model.seanet_only_decode(feats), 3)
+    return out
+
+
+def compress_phase(model, spec) -> dict:
+    """Phase 11: tools/compress.py on the random small-320 model, run as a
+    subprocess on the card, encode then decode, with the LM and --no-lm;
+    the container's ids decoded again in this process against a direct
+    encode of the same clip."""
+    import os
+    import struct
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from wavtokenizer_tpu_torch.models.lm import (LMConfig, StreamingTransformerConfig,
+                                                  init_lm, lm_params_to)
+    from wavtokenizer_tpu_torch.ops.entropy import compress_codes, decompress_codes
+    from wavtokenizer_tpu_torch.tools import compress
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sr = spec.sample_rate
+    y = (np.random.default_rng(11).normal(size=3 * sr) * 0.1).clip(-1, 1)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        wav = os.path.join(d, "in.wav")
+        wavfile.write(wav, sr, (y * 32767).astype(np.int16))
+        pcm = wavfile.read(wav)[1].astype(np.float32) / 32768.0
+        want = model.encode_infer(pcm[None])[1][:, 0].cpu().numpy()       # (1, T)
+        # The CLI's process decodes at PyTorch's default precision (cuDNN
+        # TF32 on; this script turned it off): decode the same way here.
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            want_wav = model.decode(model.codes_to_features(torch.as_tensor(want)[:, None]), 0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        want_wav = (np.clip(want_wav[0].cpu().numpy()[:len(pcm)], -1, 1) * 32767
+                    ).astype(np.int16)
+        for name, extra in (("lm", []), ("no-lm", ["--no-lm"])):
+            wtc, rec = os.path.join(d, f"{name}.wtc"), os.path.join(d, f"{name}.wav")
+            times = []
+            for argv in (["encode", wav, wtc] + extra, ["decode", wtc, rec]):
+                t0 = time.perf_counter()
+                res = subprocess.run([sys.executable, "-m", "wavtokenizer_tpu_torch.tools.compress",
+                                      *argv], cwd=root, capture_output=True, text=True,
+                                     timeout=600)
+                times.append(time.perf_counter() - t0)
+                check(res.returncode == 0, f"compress {argv[0]} {name} failed:\n{res.stderr}")
+            with open(wtc, "rb") as f:
+                data = f.read()
+            mode, k, t, n = struct.unpack("<BHII", data[4:15])
+            check(data[:4] == b"WTC1" and (k, t, n) == (*want.shape, len(pcm)),
+                  f"compress {name}: header {(mode, k, t, n)}")
+            if mode == 0:
+                ids = compress._unpack_fixed(data[15:], spec.vq.bins, k * t).reshape(k, t)
+            else:
+                lm_cfg = LMConfig(n_q=spec.vq.n_q, card=spec.vq.bins,
+                                  transformer=StreamingTransformerConfig(dim=200))
+                lm = lm_params_to(init_lm(lm_cfg, seed=0), "cuda")
+                ids = decompress_codes(lm, lm_cfg, data[15:], k, t)
+                t0 = time.perf_counter()
+                compress_codes(lm, lm_cfg, want)
+                out["lm_compress_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                decompress_codes(lm, lm_cfg, data[15:], k, t)
+                out["lm_decompress_s"] = time.perf_counter() - t0
+            diff = int((ids != want).sum())
+            check(diff == 0, f"compress {name}: {diff} of {want.size} ids differ after the round trip")
+            lsb = int(np.abs(wavfile.read(rec)[1].astype(np.int32) - want_wav).max())
+            rel = lsb / max(1, int(np.abs(want_wav).max()))
+            check(rel < SAME_CARD_WAVE_TOL,
+                  f"compress {name}: decoded audio {lsb} LSB ({rel:.3g} of max) from a direct decode")
+            out[name] = {"bytes": len(data) - 15, "bits_per_token": (len(data) - 15) * 8 / want.size,
+                         "encode_s": times[0], "decode_s": times[1], "lsb": lsb, "rel": rel}
+    out["tokens"] = int(want.size)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -310,7 +626,7 @@ def main() -> int:
         from wavtokenizer_tpu_torch.ops import kernels as K
         from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
                                                          load_golden, max_flips,
-                                                         near_tie_rows, nearest_two)
+                                                         nearest_two)
     except ImportError as e:
         log(f"chip_smoke: the wavtokenizer_tpu_torch package is not importable ({e})")
         return 1
@@ -510,42 +826,15 @@ def main() -> int:
             f"take {near[:, 0].unique().numel()} distinct codes, smallest gap between a row's "
             f"two nearest codes {float(((d2[:, 1] - d2[:, 0]) / d2[:, 0]).min()):.3g} relative")
         # Random weights send the encoder output to a few codes, too few to
-        # show the kernel's precision.  Rows placed just beyond the near-tie
-        # tolerance over N code pairs do: the kernel must get every one
-        # right, and the same kernel fed operands without their TF32 tails
-        # (x rounded to TF32 before the call, the pack's tail zeroed) must not.
-        rows = near_tie_rows(embed, N)
-        near, d2 = nearest_two(rows, embed)
-        truth = near[:, 0].int()
-        tie_gap = float(((d2[:, 1] - d2[:, 0]) / d2[:, 0]).min())
-        heads = K.pack_vq_codebook(rows)[0]
-        no_tail = torch.stack([pack[0], torch.zeros_like(pack[1])])
-        plain_rows = K.vq_nearest_reference(rows, embed, esq)
-        runs = {"kernel": K.vq_nearest(rows, embed, esq, pack),
-                "x tail dropped": K.vq_nearest(heads, embed, esq, pack),
-                "codebook tail dropped": K.vq_nearest(rows, embed, esq, no_tail),
-                "both tails dropped (1xTF32)": K.vq_nearest(heads, embed, esq, no_tail)}
-        torch.cuda.synchronize()
-        wrong = {k: int((v != truth).sum()) for k, v in runs.items()}
-        plain_wrong = int((plain_rows != truth).sum())
-        log(f"[6 resolution] N={N} rows whose two nearest codes lie {tie_gap:.3g} relative "
-            f"apart or more, over {truth.unique().numel()} codes; rows not given their nearest "
-            f"code: plain {plain_wrong}, " + ", ".join(f"{k} {v}" for k, v in wrong.items()))
-        check(tie_gap > 1e-5, f"near-tie rows: smallest gap {tie_gap:.3g} is a near-tie")
-        check(plain_wrong == 0 and wrong["kernel"] == 0,
-              f"near-tie rows: plain {plain_wrong}, kernel {wrong['kernel']} rows wrong")
-        check(all(v > 0 for k, v in wrong.items() if k != "kernel"),
-              f"near-tie rows do not tell a dropped product term apart: {wrong}")
+        # show the kernel's precision; rows just beyond the near-tie
+        # tolerance do.
+        res = resolution_check(K, embed, esq, pack, N)
+        log(f"[6 resolution] {resolution_line(res)}")
         vq_ms = cuda_ms(lambda: K.vq_nearest(flat, embed, esq, pack), 20)
         vq_plain = cuda_ms(lambda: K.vq_nearest_reference(flat, embed, esq), 20)
-        # The products as 3xTF32 on the tensor cores (three TF32 products per
-        # multiply-add, the kernel's route to fp32-class accuracy); beside it
-        # the same work as fp32 FMAs on the CUDA cores.
-        vq_ops_s = 3 * 2 * N * Cb * D / H100_TF32_FLOPS
+        vq_bound, vq_by = vq_bound_of(N, Cb, D)
+        # Beside it the same work as fp32 FMAs on the CUDA cores.
         vq_fp32_only = 2 * N * Cb * D / H100_FP32_FLOPS * 1e3
-        vq_bytes_s = (N * D * 4 + pack.numel() * 4 + Cb * 4 + N * 4) / H100_BYTES
-        vq_bound = max(vq_ops_s, vq_bytes_s) * 1e3
-        vq_by = "operations" if vq_ops_s > vq_bytes_s else "bytes"
 
         xb = (torch.randn(TIMING_BATCH, T_frames, C, generator=gen)).to(dev)
         bargs = (xb, block["dw"], block["dwb"], block["adanorm"]["scale"][0],
@@ -633,13 +922,63 @@ def main() -> int:
         f"reconstruct_long per stream {max(la['rels']):.3g} (limit {SAME_CARD_WAVE_TOL}); "
         f"launches {la['launches']}; card {card}")
 
+    # -- 9. EnCodec 24 kHz and 48 kHz ------------------------------------
+    ec = encodec_phase(K)
+    log(f"[9 encodec] 24 kHz B=8 x 3 s: launches per encode {ec['launches_per_encode']}; "
+        f"kernel chain vs plain on the chain's own residual, flips per layer {ec['flips']} "
+        f"(each a near-tie; largest gap {ec['gap']:.3g}); encode vs the same chain replayed "
+        f"{ec['same_card']} ids differ; distinct codes layer 0 / 31: {ec['distinct']}")
+    log(f"[9 encodec] 24 kHz card vs CPU: codes differing per layer {ec['cpu_layers']} "
+        f"(layer 0 limit {max_flips(8 * 225)}, goal 0; later layers reported, not gated); "
+        f"waveform from the card's codes rel-max {ec['wave_rel']:.3g} (limit 1e-3)")
+    log(f"[9 encodec] 24 kHz B=64 x 3 s on {card}: stages ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ec["stages"].items())
+        + f"; round trip (forward) {ec['rt_ms']:.3f} ms = {ec['rtf']:.1f}x real time; "
+        f"idle share {ec['idle']:.4f}; top: {ec['profile']}")
+    log(f"[9 encodec] vq_nearest N={ec['N']} C={ec['C']} D={ec['D']} (layer 0): kernel "
+        f"{ec['vq_ms']:.4f} ms, plain {ec['vq_plain_ms']:.4f} ms, bound {ec['vq_bound_ms']:.4f} ms "
+        f"({ec['vq_bound_by']}, 3xTF32); {ec['vq_flips']} flips vs plain (largest near-tie "
+        f"gap {ec['vq_err']:.3g}); 32-layer chain {ec['stages']['rvq (32 layers)'] / 32:.4f} ms "
+        f"a layer; card {card}")
+    log(f"[9 resolution] {resolution_line(ec['resolution'])}")
+    log(f"[9 encodec] 48 kHz stereo B=2 x 3.5 s: {len(ec['seg_frames'])} segments of "
+        f"{ec['seg_frames']} frames, {ec['v48']} vq_nearest launches; codes differing from "
+        f"the CPU per segment (all layers) {ec['seg_cpu_flips']}; waveform rel-max "
+        f"{ec['w48_rel']:.3g} (limit 1e-3); forward {ec['rt48_ms']:.3f} ms; card {card}")
+
+    # -- 10. facade: training-style encode, copy synthesis, SEANet decode --
+    fc = facade_phase(model, cpu, small320, K)
+    log(f"[10 facade] encode (n_q=1): {fc['encode_diff']} ids differ from encode_infer, "
+        f"launches {fc['encode_launches']}; __call__ launches {fc['call_launches']}, "
+        f"rel-max {fc['call_rel']:.3g} against decode(encode_infer) (limit {SAME_CARD_WAVE_TOL})")
+    log(f"[10 facade] seanet_only_decode card vs CPU rel-max {fc['sod_rel']:.3g} (limit 1e-3); "
+        f"B={TIMING_BATCH} x {TIMING_SECONDS:.0f} s {fc['sod_ms']:.3f} ms = "
+        f"{TIMING_BATCH * TIMING_SECONDS / (fc['sod_ms'] / 1e3):.1f}x real time; card {card}")
+
+    # -- 11. compress CLI ---------------------------------------------------
+    cp = compress_phase(model, small320)
+    for name in ("lm", "no-lm"):
+        r = cp[name]
+        log(f"[11 compress] {name}: {cp['tokens']} tokens -> {r['bytes']} bytes = "
+            f"{r['bits_per_token']:.3f} bits/token, ids equal after the round trip, decoded "
+            f"audio {r['lsb']} LSB ({r['rel']:.3g} of max; limit {SAME_CARD_WAVE_TOL}) from a "
+            f"direct decode at the CLI's precision; subprocess encode {r['encode_s']:.2f} s, "
+            f"decode {r['decode_s']:.2f} s")
+    log(f"[11 compress] LM coding in this process: compress {cp['lm_compress_s']:.3f} s, "
+        f"decompress {cp['lm_decompress_s']:.3f} s for {cp['tokens']} tokens (per-step, "
+        f"host-bound); card {card}")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:151",
-         "launches": launches["vq_nearest"], "max_abs_err": vq_err, "ms": vq_ms,
-         "plain_ms": vq_plain, "bound_ms": vq_bound, "bound_by": vq_by,
-         "library_ms": None},
+         "launches": launches["vq_nearest"], "max_abs_err": max(vq_err, ec["vq_err"]),
+         "ms": vq_ms, "plain_ms": vq_plain, "bound_ms": vq_bound, "bound_by": vq_by,
+         "library_ms": None,
+         "encodec": {"N": ec["N"], "C": ec["C"], "D": ec["D"], "ms": ec["vq_ms"],
+                     "plain_ms": ec["vq_plain_ms"], "bound_ms": ec["vq_bound_ms"],
+                     "bound_by": ec["vq_bound_by"],
+                     "launches_per_encode": ec["launches_per_encode"]["vq_nearest"]}},
         {"name": "convnext_block", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/convnext.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:100",

@@ -10,6 +10,7 @@ multiples of 64/16/128; lengths that leave the encoder front's last tiles
 partial) so the masked edges are exercised.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -208,3 +209,79 @@ def test_encoder_front_gate_keeps_other_lengths_and_geometries_plain(small320_en
         seanet_encode(params, spec.seanet, torch.zeros(1, 4800, 1, device="cuda"))
     torch.cuda.synchronize()
     assert K.encoder_front.launches == before + 1
+
+
+def test_vq_nearest_at_the_encodec_shape(cuda):
+    """N = 14 400 (batch 64 x 3 s at 75 frames/s), C = 1024, D = 128: the
+    residual VQ's shape, 600 (row tile, code tile) pairs of 4 k-blocks."""
+    g = torch.Generator().manual_seed(14400)
+    x = (torch.randn(14400, 128, generator=g) * 0.1).to(cuda)
+    e = (torch.randn(1024, 128, generator=g) * 0.1).to(cuda)
+    before = K.vq_nearest.launches
+    got = K.vq_nearest(x, e)
+    want = K.vq_nearest_reference(x, e)
+    torch.cuda.synchronize()
+    assert K.vq_nearest.launches == before + 1
+    assert got.shape == (14400,) and int(got.min()) >= 0 and int(got.max()) < 1024
+    assert _assert_near_ties(x, e, got, want) <= max(2, 14400 // 400)
+
+
+def test_chained_vq_encode_matches_plain_layer_by_layer(cuda):
+    """A 4-layer residual chain on the card; each layer's plain search on the
+    residual the kernel chain left holds its codes (near-ties only)."""
+    from wavtokenizer_tpu_torch.api.pretrained import quantizer_from_jax
+    from wavtokenizer_tpu_torch.models.quantize import VQConfig, vq_encode
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+
+    rng = np.random.default_rng(4)
+    embed = np.stack([rng.normal(size=(1024, 128)) * 0.5 ** q for q in range(4)])
+    q = quantizer_from_jax({"embed": embed.astype(np.float32)}, cuda)
+    x = torch.as_tensor(rng.normal(size=(8, 225, 128)).astype(np.float32)).to(cuda)
+    before = K.vq_nearest.launches
+    with full_fp32():
+        codes = vq_encode(q, VQConfig(dimension=128, n_q=4, bins=1024), x)
+    torch.cuda.synchronize()
+    assert K.vq_nearest.launches == before + 4 and codes.shape == (4, 8, 225)
+    residual, flips = x.reshape(-1, 128), 0
+    for layer in range(4):
+        e, got = q["embed"][layer], codes[layer].reshape(-1)
+        flips += _assert_near_ties(residual, e, got, K.vq_nearest_reference(residual, e))
+        residual = residual - e[got.long()]
+    assert flips <= max(2, 4 * 1800 // 400)
+
+
+@pytest.mark.parametrize("k,stride,causal,gn", [(16, 8, True, False), (10, 5, False, True),
+                                                (4, 2, True, True)])
+def test_sconv_transpose1d_card_matches_cpu(cuda, k, stride, causal, gn):
+    from functools import partial
+
+    from wavtokenizer_tpu_torch.models.seanet import _time_group_norm
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.ops.conv import sconv_transpose1d
+
+    g = torch.Generator().manual_seed(k)
+    x, w = torch.randn(4, 200, 64, generator=g), torch.randn(64, 32, k, generator=g) * 0.1
+    b, p = torch.randn(32, generator=g), {"weight": torch.randn(32, generator=g) + 1,
+                                          "bias": torch.randn(32, generator=g)}
+
+    def run(dev):
+        norm = partial(_time_group_norm, {n: t.to(dev) for n, t in p.items()}) if gn else None
+        with full_fp32():
+            return sconv_transpose1d(x.to(dev), w.to(dev), b.to(dev), stride=stride,
+                                     causal=causal, norm_fn=norm)
+
+    got, want = run(cuda).cpu(), run("cpu")
+    assert got.shape == want.shape == (4, 200 * stride, 32)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
+def test_lm_compression_lossless_on_the_card(cuda):
+    from wavtokenizer_tpu_torch.models.lm import (LMConfig, StreamingTransformerConfig,
+                                                  init_lm, lm_params_to)
+    from wavtokenizer_tpu_torch.ops.entropy import compress_codes, decompress_codes
+
+    cfg = LMConfig(n_q=4, card=1024, transformer=StreamingTransformerConfig(past_context=32))
+    params = lm_params_to(init_lm(cfg, seed=0), cuda)
+    codes = np.random.default_rng(0).integers(0, 1024, size=(4, 60)).astype(np.int32)
+    blob = compress_codes(params, cfg, codes)
+    np.testing.assert_array_equal(decompress_codes(params, cfg, blob, 4, 60), codes)

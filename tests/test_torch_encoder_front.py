@@ -18,7 +18,7 @@ from wavtokenizer_tpu.models import seanet as js
 from wavtokenizer_tpu.models.init import init_seanet
 from wavtokenizer_tpu.ops import encoder_front as jef
 from wavtokenizer_tpu_torch import WavTokenizer, WavTokenizerSpec, init_wavtokenizer
-from wavtokenizer_tpu_torch.api.pretrained import _encoder
+from wavtokenizer_tpu_torch.api.pretrained import seanet_from_jax
 from wavtokenizer_tpu_torch.models import seanet as ts
 from wavtokenizer_tpu_torch.ops import encoder_front as tef
 from wavtokenizer_tpu_torch.ops import kernels as K
@@ -29,8 +29,8 @@ def _front(cfg_kw: dict | None = None, seed: int = 0):
     kw = cfg_kw or {}
     jcfg, tcfg = js.SEANetConfig(**kw), ts.SEANetConfig(**kw)
     params = init_seanet(np.random.default_rng(seed), jcfg, encoder=True)
-    tparams = _encoder(params, WavTokenizerSpec(seanet=tcfg), "cpu")
-    return params, js.encoder_layer_specs(jcfg), tparams, ts.encoder_layer_specs(tcfg)
+    tspecs = ts.encoder_layer_specs(tcfg)
+    return params, js.encoder_layer_specs(jcfg), seanet_from_jax(params, tspecs, "cpu"), tspecs
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ from wavtokenizer_tpu.models.init import init_backbone, init_seanet
 from wavtokenizer_tpu.ops.conv import sconv1d as j_sconv1d
 from wavtokenizer_tpu.ops.lstm import slstm as j_slstm
 from wavtokenizer_tpu.ops.spectral import istft_same as j_istft_same
-from wavtokenizer_tpu_torch.api.pretrained import _backbone, _encoder
+from wavtokenizer_tpu_torch.api.pretrained import _backbone, seanet_from_jax
 from wavtokenizer_tpu_torch.models import quantize as tq
 from wavtokenizer_tpu_torch.models import seanet as ts
 from wavtokenizer_tpu_torch.models import vocos as tv
@@ -81,9 +81,9 @@ def test_seanet_encode_matches_jax():
     params = init_seanet(np.random.default_rng(2), cfg, encoder=True)
     audio = (np.random.default_rng(3).normal(size=(2, 3200, 1)) * 0.1).astype(np.float32)
     want = js.seanet_encode(params, cfg, jnp.asarray(audio))
-    spec = tw.WavTokenizerSpec(seanet=tcfg)
     with torch.no_grad():
-        got = ts.seanet_encode(_encoder(params, spec, "cpu"), tcfg, torch.from_numpy(audio))
+        got = ts.seanet_encode(seanet_from_jax(params, ts.encoder_layer_specs(tcfg), "cpu"),
+                               tcfg, torch.from_numpy(audio))
     assert got.shape == want.shape == (2, 10, 32)
     assert _rel(got, want) < 1e-5
 

@@ -8,11 +8,15 @@ Port of ``wavtokenizer_tpu/api/pretrained.py`` (ref decoder/pretrained.py):
     features, codes = wt.encode_infer(audio)
     audio_hat = wt.decode(features, bandwidth_id=0)
     features = wt.codes_to_features(codes)
+    features, codes = wt.encode(audio, n_q=2)     # training-style encode
+    audio_hat = wt(audio, bandwidth_id=0)         # copy synthesis
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 the card the encoder front (layers 0-6), the VQ search and the ConvNeXt
 blocks run in this package's own kernels (``ops/kernels.py``).  Inputs may
 be numpy arrays or tensors; outputs are tensors on the model's device.
+``encodec_from_jax_params`` builds the params of ``models/encodec.py`` from
+the same kind of pytree.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from ..checkpoint.convert import (average_state_dicts, convert_wavtokenizer_state_dict,
                                   load_torch_state_dict)
 from ..models import wavtokenizer as wt
-from ..models.seanet import encoder_layer_specs
+from ..models.seanet import decoder_layer_specs, encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
 from ..ops.encoder_front import front_geometry_matches, prepare_front_weights
 from ..ops.kernels import pack_convnext_weights, pack_vq_codebook
@@ -38,10 +42,21 @@ def _t(a, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def _conv(p: dict, device) -> dict:
-    """{'kernel': (K, I, O)} -> {'weight': (O, I, K), 'bias'}."""
+    """{'kernel': (K, I, O)} -> {'weight': (O, I, K), 'bias'}, with the
+    GroupNorm params ('gn') of a time_group_norm layer."""
     bias = p.get("bias")
-    return {"weight": _t(np.transpose(p["kernel"], (2, 1, 0)), device).contiguous(),
-            "bias": None if bias is None else _t(bias, device)}
+    out = {"weight": _t(np.transpose(p["kernel"], (2, 1, 0)), device).contiguous(),
+           "bias": None if bias is None else _t(bias, device)}
+    if "gn" in p:
+        out["gn"] = _norm(p["gn"], device)
+    return out
+
+
+def _convtr(p: dict, device) -> dict:
+    """Transposed conv {'kernel': (K, I, O)} -> {'weight': (I, O, K), 'bias'}."""
+    out = _conv(p, device)
+    out["weight"] = _t(np.transpose(p["kernel"], (1, 2, 0)), device).contiguous()
+    return out
 
 
 def _linear_from_conv1x1(p: dict, device) -> dict:
@@ -53,11 +68,16 @@ def _norm(p: dict, device) -> dict:
     return {k: _t(p[k], device) for k in ("weight", "bias")}
 
 
-def _encoder(params: list, spec: WavTokenizerSpec, device) -> list:
+def seanet_from_jax(params: list, specs: list, device) -> list:
+    """The JAX package's SEANet layer params (numpy) -> this package's, for
+    the encoder or the decoder (``specs`` says which).  An encoder the front
+    kernel serves gets the kernel's weight pack under ``[0]["front"]``."""
     out = []
-    for p, s in zip(params, encoder_layer_specs(spec.seanet)):
+    for p, s in zip(params, specs):
         if s.kind == "conv":
             out.append(_conv(p, device))
+        elif s.kind == "convtr":
+            out.append(_convtr(p, device))
         elif s.kind == "resblock":
             q = {"block": [_conv(c, device) for c in p["block"]]}
             if "shortcut" in p:
@@ -67,11 +87,18 @@ def _encoder(params: list, spec: WavTokenizerSpec, device) -> list:
             out.append({"lstm": lstm_from_layers(p["layers"], device)})
         else:
             out.append({})
-    specs = encoder_layer_specs(spec.seanet)
     # Any length the gate admits will do: the pack depends on the weights only.
     if front_geometry_matches(specs, out, 1024):
         out[0]["front"] = prepare_front_weights(out)
     return out
+
+
+def quantizer_from_jax(params: dict, device) -> dict:
+    """{'embed': (n_q, bins, dim)} -> the codebooks, |E|^2 per code and the
+    VQ kernel's split codebook of every layer, made once here."""
+    embed = _t(params["embed"], device)
+    return {"embed": embed, "esq": (embed * embed).sum(-1),
+            "pack": torch.stack([pack_vq_codebook(e) for e in embed])}
 
 
 def _convnext(p: dict, device) -> dict:
@@ -113,19 +140,32 @@ def _backbone(p: dict, device) -> dict:
     }
 
 
+def encodec_from_jax_params(params_np: dict, cfg, device="cuda") -> dict:
+    """The encoder, decoder and quantizer of a JAX param pytree (numpy;
+    ``init_encodec``, ``convert_encodec_state_dict`` or the codec part of a
+    WavTokenizer's) -> this package's on ``device``: conv weights
+    (C_out, C_in, K), transposed-conv weights (C_in, C_out, K), the LSTMs as
+    ``nn.LSTM``s, and |E|^2 and the VQ kernel's split codebook of every
+    layer.  ``cfg`` is an ``EncodecConfig`` or a ``WavTokenizerSpec``: only
+    its ``seanet`` is read."""
+    device = torch.device(device)
+    return {
+        "encoder": seanet_from_jax(params_np["encoder"],
+                                   encoder_layer_specs(cfg.seanet), device),
+        "decoder": seanet_from_jax(params_np["decoder"],
+                                   decoder_layer_specs(cfg.seanet), device),
+        "quantizer": quantizer_from_jax(params_np["quantizer"], device),
+    }
+
+
 def from_jax_params(params_np: dict, spec: WavTokenizerSpec, device="cuda") -> dict:
     """The JAX package's param pytree (numpy; ``models/init.py`` or
     ``checkpoint/convert.py`` output, channel-last kernels) -> this package's
-    params on ``device``: conv weights (C_out, C_in, K), the ConvNeXt matmul
-    weights in bf16, the encoder LSTM as an ``nn.LSTM``, |E|^2 per code and
-    the codebook split for the VQ kernel.
-    The SEANet decoder's weights are not carried over (not run yet)."""
+    params on ``device``: the codec's as ``encodec_from_jax_params`` makes
+    them, and the backbone's, its ConvNeXt matmul weights in bf16."""
     device = torch.device(device)
-    embed = _t(params_np["quantizer"]["embed"], device)
     return {
-        "encoder": _encoder(params_np["encoder"], spec, device),
-        "quantizer": {"embed": embed, "esq": (embed * embed).sum(-1),
-                      "pack": torch.stack([pack_vq_codebook(e) for e in embed])},
+        **encodec_from_jax_params(params_np, spec, device),
         "backbone": _backbone(params_np["backbone"], device),
         "head": {"out": {"weight": _t(params_np["head"]["out"]["weight"], device),
                          "bias": _t(params_np["head"]["out"]["bias"], device)}},
@@ -187,6 +227,12 @@ class WavTokenizer:
         1-D input is a batch of one."""
         return wt.encode_infer(self.params, self.spec, self._audio(audio_input))
 
+    def encode(self, audio_input, bandwidth_id=None, n_q: int | None = None):
+        """Training-style encode (ref pretrained.py:179-182): (B, T) audio ->
+        (features (B, D, T'), codes (n_q, B, T') int32); every layer quantizes
+        the same embedding and the features are the last layer's."""
+        return wt.encode_forward(self.params, self.spec, self._audio(audio_input), n_q=n_q)
+
     def decode(self, features_input, bandwidth_id) -> torch.Tensor:
         """(B, D, T') features -> (B, T' * hop) waveform."""
         features = torch.as_tensor(features_input, dtype=torch.float32).to(self.device)
@@ -197,8 +243,15 @@ class WavTokenizer:
         return wt.codes_to_features(self.params, torch.as_tensor(codes).to(self.device))
 
     def __call__(self, audio_input, bandwidth_id) -> torch.Tensor:
-        """Copy synthesis: encode, then decode (ref pretrained.py:159-175).
-        The reference encodes through the training-style VQ forward, which
-        with the single codebook gives the same features as encode_infer."""
-        features, _ = self.encode_infer(audio_input)
-        return self.decode(features, bandwidth_id)
+        """Copy synthesis (ref pretrained.py:159-175): the training-style
+        encode (``encode``, all of the spec's quantizers), then decode."""
+        return wt.forward(self.params, self.spec, self._audio(audio_input),
+                          int(bandwidth_id))
+
+    forward = __call__
+
+    def seanet_only_decode(self, features_input) -> torch.Tensor:
+        """(B, D, T') features -> (B, T' * hop) through the SEANet decoder
+        alone (bypasses Vocos)."""
+        features = torch.as_tensor(features_input, dtype=torch.float32).to(self.device)
+        return wt.seanet_only_decode(self.params, self.spec, features)

@@ -10,8 +10,8 @@ and every tensor re-laid-out channel-last like the JAX package:
 
 ``api.pretrained.WavTokenizer.from_state_dict`` feeds the result to
 ``from_jax_params``, so weights reach this package by one road.  Values may
-be torch tensors or numpy arrays.  The SEANet decoder is converted too
-(for key coverage), though it does not run here yet.
+be torch tensors or numpy arrays.  ``convert_encodec_state_dict`` reads a
+pretrained EnCodec model's state dict the same way.
 """
 
 from __future__ import annotations
@@ -103,21 +103,31 @@ def lstm_params(sd: TrackedStateDict, prefix: str, num_layers: int) -> dict:
 def seanet_params(sd: TrackedStateDict, root: str, specs: list[LayerSpec]) -> list:
     """Flat per-layer params from torch keys under ``root``
     (e.g. 'feature_extractor.encodec.encoder.')."""
+
+    def with_gn(p: dict, norm_prefix: str, spec: LayerSpec) -> dict:
+        # time_group_norm: NormConv(Transpose)1d holds a GroupNorm(1, C) as
+        # `.norm` beside the inner conv (ref conv.py:112-122,145-155).
+        if spec.norm == "time_group_norm":
+            p["gn"] = norm_params(sd, norm_prefix)
+        return p
+
+    def conv(pre: str, spec: LayerSpec) -> dict:
+        return with_gn(conv1d_params(sd, f"{pre}.conv.conv"), f"{pre}.conv.norm", spec)
+
     params = []
     for spec in specs:
         pre = f"{root}{spec.prefix}"
-        if spec.norm not in ("weight_norm", "none"):
-            raise NotImplementedError(f"norm {spec.norm!r} is not ported yet")
         if spec.kind == "conv":
-            params.append(conv1d_params(sd, f"{pre}.conv.conv"))
+            params.append(conv(pre, spec))
         elif spec.kind == "convtr":
-            params.append(convtr1d_params(sd, f"{pre}.convtr.convtr"))
+            params.append(with_gn(convtr1d_params(sd, f"{pre}.convtr.convtr"),
+                                  f"{pre}.convtr.norm", spec))
         elif spec.kind == "resblock":
             # Sequential [ELU, conv, ELU, conv]: the convs sit at 1 and 3.
-            p = {"block": [conv1d_params(sd, f"{pre}.block.{2 * i + 1}.conv.conv")
+            p = {"block": [conv(f"{pre}.block.{2 * i + 1}", spec)
                            for i in range(len(spec.block_kernel_sizes))]}
             if not spec.true_skip:
-                p["shortcut"] = conv1d_params(sd, f"{pre}.shortcut.conv.conv")
+                p["shortcut"] = conv(f"{pre}.shortcut", spec)
             params.append(p)
         elif spec.kind == "lstm":
             params.append(lstm_params(sd, f"{pre}.lstm", spec.num_lstm_layers))
@@ -196,6 +206,21 @@ def convert_wavtokenizer_state_dict(sd, spec: WavTokenizerSpec) -> dict:
         "quantizer": quantizer_params(sd, f"{fe}quantizer.", spec.vq.n_q),
         "backbone": vocos_backbone_params(sd, "backbone.", spec.backbone),
         "head": istft_head_params(sd, "head."),
+    }
+
+
+def convert_encodec_state_dict(sd, cfg) -> dict:
+    """A raw pretrained-EnCodec state dict (``encodec_*.th``, keys under
+    encoder. / decoder. / quantizer.; ref encoder/model.py:250-281) -> the
+    JAX package's param pytree for ``models/encodec.py``.  ``cfg`` is an
+    ``EncodecConfig``; the GroupNorm params of a time_group_norm model are
+    read through the layer specs."""
+    if not isinstance(sd, TrackedStateDict):
+        sd = TrackedStateDict(sd)
+    return {
+        "encoder": seanet_params(sd, "encoder.", encoder_layer_specs(cfg.seanet)),
+        "decoder": seanet_params(sd, "decoder.", decoder_layer_specs(cfg.seanet)),
+        "quantizer": quantizer_params(sd, "quantizer.", cfg.vq.n_q),
     }
 
 

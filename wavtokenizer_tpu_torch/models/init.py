@@ -4,9 +4,7 @@ A copy of ``wavtokenizer_tpu/models/init.py::init_wavtokenizer`` that draws
 the same numbers in the same order from ``np.random.default_rng(seed)``, so
 that both packages build bit-identical weights from one seed; the golden
 tokens in ``tests/golden/bench_tokens.npz`` come from
-``init_wavtokenizer(spec, seed=0, random_codebook=True)``.  The SEANet
-decoder's weights are drawn too, although this package does not run the
-decoder yet: every later draw depends on them.  The result is the JAX
+``init_wavtokenizer(spec, seed=0, random_codebook=True)``.  The result is the JAX
 package's param pytree (numpy, channel-last kernels (K, C_in, C_out), Linear
 weights (C_in, C_out)); ``api.pretrained.WavTokenizer.from_jax_params`` turns
 it into this package's tensors.
@@ -227,3 +225,22 @@ def init_wavtokenizer(spec: WavTokenizerSpec, seed: int = 0,
         "backbone": init_backbone(rng, spec.backbone),
         "head": init_head(rng, spec.head),
     }
+
+
+def init_encodec(cfg, seed: int = 0) -> dict:
+    """Seeded random EnCodec params (``cfg`` an ``EncodecConfig``): encoder,
+    decoder and a kaiming-uniform codebook per quantizer, drawn in that
+    order with the JAX package's ``init_seanet``/``init_quantizer`` draws.
+    A time_group_norm model also gets its GroupNorm affines at torch's init
+    (weight 1, bias 0), which the JAX init does not draw."""
+    rng = np.random.default_rng(seed)
+    params = {"encoder": init_seanet(rng, cfg.seanet, encoder=True),
+              "decoder": init_seanet(rng, cfg.seanet, encoder=False),
+              "quantizer": init_quantizer(rng, cfg.vq, random_codebook=True)}
+    if cfg.seanet.norm == "time_group_norm":
+        for p in params["encoder"] + params["decoder"]:
+            convs = [p] if "kernel" in p else p.get("block", []) + (
+                [p["shortcut"]] if "shortcut" in p else [])
+            for conv in convs:
+                conv["gn"] = _norm_ones(conv["kernel"].shape[-1])
+    return params

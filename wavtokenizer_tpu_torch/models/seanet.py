@@ -1,18 +1,21 @@
-"""SEANet encoder, inference path, driven by the same layer specs as the
-JAX package.
+"""SEANet encoder and decoder, inference path, driven by the same layer specs
+as the JAX package.
 
 Port of ``wavtokenizer_tpu/models/seanet.py`` (ref encoder/modules/seanet.py:
-66-238): the config and layer-spec dataclasses are field-for-field copies
-(the decoder specs too, which the numpy init needs to draw its numbers in
-order); ``seanet_encode`` runs the encoder stack.  Activations are
-channel-last (B, T, C) between layers.  Params per layer:
+66-238): the config and layer-spec dataclasses are field-for-field copies;
+``seanet_encode`` runs the encoder stack and ``seanet_decode`` the decoder.
+Activations are channel-last (B, T, C) between layers.  Params per layer:
 
-* conv:     {"weight": (C_out, C_in, K), "bias": (C_out,)}; layer 0 also
-            holds the front kernel's packed weights under "front" when the
-            geometry matches (``ops/encoder_front.py``)
+* conv:     {"weight": (C_out, C_in, K), "bias": (C_out,)}; layer 0 of the
+            encoder also holds the front kernel's packed weights under
+            "front" when the geometry matches (``ops/encoder_front.py``)
+* convtr:   {"weight": (C_in, C_out, K), "bias": (C_out,)}
 * resblock: {"block": [conv, conv], "shortcut": conv (unless true_skip)}
 * lstm:     {"lstm": nn.LSTM}
-* elu:      {}
+* elu, final_act: {}
+
+Under ``norm="time_group_norm"`` every conv and convtr also holds
+{"gn": {"weight": (C_out,), "bias": (C_out,)}}: GroupNorm(1, C) after it.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import kernels
-from ..ops.conv import sconv1d
+from ..ops.conv import sconv1d, sconv_transpose1d
 from ..ops.encoder_front import front_geometry_matches
 from ..ops.lstm import slstm
 
@@ -105,8 +108,7 @@ def encoder_layer_specs(cfg: SEANetConfig) -> list[LayerSpec]:
 
 def decoder_layer_specs(cfg: SEANetConfig) -> list[LayerSpec]:
     """Flattened layers with SEANetDecoder's module indices
-    (ref seanet.py:192-234).  Only the init and the checkpoint converter use
-    them: the decoder does not run in this package yet."""
+    (ref seanet.py:192-234)."""
     specs: list[LayerSpec] = [LayerSpec("conv", "model.0", causal=cfg.causal,
                                         pad_mode=cfg.pad_mode, norm=cfg.norm)]
     if cfg.lstm:
@@ -128,10 +130,23 @@ def decoder_layer_specs(cfg: SEANetConfig) -> list[LayerSpec]:
     return specs
 
 
+def _time_group_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """GroupNorm(1, C) on channel-last (B, T, C): statistics over the whole
+    (T, C) slab per batch element (ref conv.py:45-49; torch's eps 1e-5)."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * p["weight"] + p["bias"]
+
+
+def _post_norm(p: dict, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
+    return _time_group_norm(p["gn"], x) if spec.norm == "time_group_norm" else x
+
+
 def _conv(p: dict, spec: LayerSpec, x: torch.Tensor, stride: int = 1,
           dilation: int = 1) -> torch.Tensor:
-    return sconv1d(x, p["weight"], p["bias"], stride=stride, dilation=dilation,
-                   causal=spec.causal, pad_mode=spec.pad_mode)
+    x = sconv1d(x, p["weight"], p["bias"], stride=stride, dilation=dilation,
+                causal=spec.causal, pad_mode=spec.pad_mode)
+    return _post_norm(p, spec, x)
 
 
 def _apply_resblock(p: dict, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
@@ -143,18 +158,33 @@ def _apply_resblock(p: dict, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
     return short + h
 
 
-def _apply_layer(p: dict, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
-    if spec.norm not in ("weight_norm", "none"):
-        raise NotImplementedError(f"norm {spec.norm!r} is not ported yet")
+_NORMS = ("weight_norm", "none", "time_group_norm")
+
+
+def _apply_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
+                 final_activation: str | None = None) -> torch.Tensor:
+    if spec.norm not in _NORMS:
+        raise NotImplementedError(f"norm {spec.norm!r}")
     if spec.kind == "conv":
         return _conv(p, spec, x, stride=spec.stride, dilation=spec.dilation)
+    if spec.kind == "convtr":
+        norm_fn = ((lambda y: _time_group_norm(p["gn"], y))
+                   if spec.norm == "time_group_norm" else None)
+        return sconv_transpose1d(x, p["weight"], p["bias"], stride=spec.stride,
+                                 causal=spec.causal,
+                                 trim_right_ratio=spec.trim_right_ratio,
+                                 norm_fn=norm_fn)
     if spec.kind == "resblock":
         return _apply_resblock(p, spec, x)
     if spec.kind == "lstm":
         return slstm(x, p["lstm"])
     if spec.kind == "elu":
         return F.elu(x)
-    raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
+    if spec.kind == "final_act":
+        if final_activation == "Tanh":
+            return torch.tanh(x)
+        raise NotImplementedError(f"final activation {final_activation!r}")
+    raise ValueError(f"layer kind {spec.kind!r}")
 
 
 def _plain_front(params: list, specs: list[LayerSpec], x: torch.Tensor) -> torch.Tensor:
@@ -182,3 +212,11 @@ def seanet_encode(params: list, cfg: SEANetConfig, audio: torch.Tensor,
     for p, spec in zip(params[start:], specs[start:]):
         x = _apply_layer(p, spec, x)
     return x
+
+
+def seanet_decode(params: list, cfg: SEANetConfig, z: torch.Tensor) -> torch.Tensor:
+    """z (B, T', dimension) -> audio (B, T' * hop, channels).  Every layer
+    runs plainly (cuDNN on the card); the caller sets the precision."""
+    for p, spec in zip(params, decoder_layer_specs(cfg)):
+        z = _apply_layer(p, spec, z, cfg.final_activation)
+    return z

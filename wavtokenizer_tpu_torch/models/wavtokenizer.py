@@ -1,22 +1,24 @@
 """Full WavTokenizer round trip: SEANet encoder -> VQ -> Vocos backbone ->
-ISTFT head.
+ISTFT head, the training-style encode, and the SEANet-only decode.
 
 Port of ``wavtokenizer_tpu/models/wavtokenizer.py`` (ref
 decoder/feature_extractors.py:131-142, decoder/pretrained.py:192-239).  The
 layouts at the boundary are the JAX package's: audio (B, T), features
-(B, D, T'), codes (1, B, T') int32.  Channel-last inside.
+(B, D, T'), codes (K, B, T') int32.  Channel-last inside.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 
 import torch
 
-from .quantize import VQConfig, codes_to_features as _codes_to_features, vq_infer
-from .seanet import SEANetConfig, seanet_encode
+from .quantize import (VQConfig, codes_to_features as _codes_to_features,
+                       vq_forward_language, vq_infer)
+from .seanet import SEANetConfig, seanet_decode, seanet_encode
 from .vocos import ISTFTHeadConfig, VocosBackboneConfig, istft_head, vocos_backbone
 
 
@@ -32,6 +34,10 @@ class WavTokenizerSpec:
     @property
     def hop_length(self) -> int:
         return self.seanet.hop_length
+
+    @property
+    def frame_rate(self) -> int:
+        return math.ceil(self.sample_rate / self.hop_length)
 
 
 _FP32_LOCK = threading.Lock()
@@ -85,6 +91,21 @@ def encode_infer(params: dict, spec: WavTokenizerSpec, audio: torch.Tensor):
 
 
 @torch.inference_mode()
+def encode_forward(params: dict, spec: WavTokenizerSpec, audio: torch.Tensor,
+                   n_q: int | None = None):
+    """Eval-mode training-style encode (ref feature_extractors.py:105-119 ->
+    LanguageVectorQuantization.forward): audio (B, T) -> (features
+    (B, D, T'), codes (n_q, B, T') int32).  Every layer quantizes the same
+    embedding and the features are the last layer's; at n_q = 1 this is
+    ``encode_infer``.  Runs in true fp32 (``full_fp32``)."""
+    with full_fp32():
+        emb = seanet_encode(params["encoder"], spec.seanet, audio[:, :, None])
+        quantized, codes = vq_forward_language(params["quantizer"], spec.vq, emb,
+                                               n_q=n_q)
+    return quantized.transpose(1, 2), codes
+
+
+@torch.inference_mode()
 def decode(params: dict, spec: WavTokenizerSpec, features: torch.Tensor,
            bandwidth_id: int) -> torch.Tensor:
     """features (B, D, T') -> waveform (B, T' * hop)."""
@@ -97,3 +118,20 @@ def decode(params: dict, spec: WavTokenizerSpec, features: torch.Tensor,
 def codes_to_features(params: dict, codes: torch.Tensor) -> torch.Tensor:
     """codes (K, B, T) or (K, T) -> features (B, D, T)."""
     return _codes_to_features(params["quantizer"], codes).transpose(1, 2)
+
+
+@torch.inference_mode()
+def forward(params: dict, spec: WavTokenizerSpec, audio: torch.Tensor,
+            bandwidth_id: int) -> torch.Tensor:
+    """Copy synthesis (ref decoder/pretrained.py:159-175): the training-style
+    encode, then ``decode``.  audio (B, T) -> (B, T' * hop)."""
+    features, _ = encode_forward(params, spec, audio)
+    return decode(params, spec, features, bandwidth_id)
+
+
+@torch.inference_mode()
+def seanet_only_decode(params: dict, spec: WavTokenizerSpec,
+                       features: torch.Tensor) -> torch.Tensor:
+    """The SEANet decoder alone, bypassing Vocos: features (B, D, T') ->
+    (B, T' * hop), the first audio channel (the EnCodec-style resynthesis)."""
+    return seanet_decode(params["decoder"], spec.seanet, features.transpose(1, 2))[:, :, 0]

@@ -2,8 +2,10 @@
 
 Port of ``wavtokenizer_tpu/ops/conv.py``.  Activations enter and leave as
 (B, T, C), like the JAX functions; inside, ``F.conv1d`` runs on the
-channel-first view.  Weights are in PyTorch's layout (C_out, C_in/groups, K)
-with weight norm already folded.
+channel-first view.  Weights are in PyTorch's layout with weight norm
+already folded: (C_out, C_in/groups, K) for a conv, (C_in, C_out, K) for a
+transposed conv (``api/pretrained.py`` re-lays out the JAX kernels once, at
+model build).
 
 fp32 convolutions on the card go through cuDNN, which uses TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is off; the encode path turns it off
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .padding import pad1d, sconv1d_paddings
+from .padding import pad1d, sconv1d_paddings, sconvtr1d_unpaddings, unpad1d
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
@@ -25,6 +27,30 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     h = F.pad(x.transpose(1, 2), padding) if any(padding) else x.transpose(1, 2)
     return F.conv1d(h, weight, bias, stride=stride, dilation=dilation,
                     groups=groups).transpose(1, 2)
+
+
+def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
+    """Transposed conv1d with no implicit padding, out = (T - 1) * stride + K.
+    x (B, T, C_in), weight (C_in, C_out, K) -> (B, T', C_out)."""
+    return F.conv_transpose1d(x.transpose(1, 2), weight, bias,
+                              stride=stride).transpose(1, 2)
+
+
+def sconv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor | None, stride: int = 1,
+                      causal: bool = False, trim_right_ratio: float = 1.0,
+                      norm_fn=None) -> torch.Tensor:
+    """Streamable transposed conv: the conv, then the fixed trim (ref
+    SConvTranspose1d.forward, encoder/modules/conv.py:231-253).  ``norm_fn``
+    (time_group_norm) runs on the UNTRIMMED output, as the reference norms
+    inside NormConvTranspose1d before it unpads: the statistics include the
+    edges."""
+    y = conv_transpose1d(x, weight, bias, stride=stride)
+    if norm_fn is not None:
+        y = norm_fn(y)
+    return unpad1d(y, sconvtr1d_unpaddings(weight.shape[-1], stride, causal,
+                                           trim_right_ratio))
 
 
 def sconv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

@@ -3,7 +3,8 @@
 Port of ``wavtokenizer_tpu/ops/padding.py`` (itself the padding math of the
 reference EnCodec conv wrappers, encoder/modules/conv.py:54-105).  The
 shape helpers are plain integer math; ``pad1d`` pads the LAST (time) axis of
-a channel-first (B, C, T) tensor, PyTorch's conv layout.
+a channel-first (B, C, T) tensor, PyTorch's conv layout; ``unpad1d`` trims
+the time axis of a channel-last (B, T, C) tensor, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -56,3 +57,24 @@ def sconv1d_paddings(length: int, kernel_size: int, stride: int, dilation: int,
         return padding_total, extra
     right = padding_total // 2
     return padding_total - right, right + extra
+
+
+def unpad1d(x: torch.Tensor, paddings: tuple[int, int]) -> torch.Tensor:
+    """Trim the time axis of a (B, T, C) tensor (ref conv.py:99-105)."""
+    left, right = paddings
+    if left < 0 or right < 0 or left + right > x.shape[1]:
+        raise ValueError(f"cannot trim {paddings} from length {x.shape[1]}")
+    return x[:, left:x.shape[1] - right]
+
+
+def sconvtr1d_unpaddings(kernel_size: int, stride: int, causal: bool,
+                         trim_right_ratio: float = 1.0) -> tuple[int, int]:
+    """(left, right) trim after a transposed conv (ref conv.py:231-253): a
+    causal conv trims ``ceil(padding_total * trim_right_ratio)`` on the right
+    and the rest on the left; otherwise the right gets the smaller half."""
+    padding_total = kernel_size - stride
+    if causal:
+        right = math.ceil(padding_total * trim_right_ratio)
+    else:
+        right = padding_total // 2
+    return padding_total - right, right
