@@ -26,6 +26,15 @@ tools/compress.py as a subprocess, with the LM and fixed-rate, whose ids
 must survive the round trip.  Weights are random, drawn from seed 0 by the
 port's numpy init.
 
+Then training ([12]): one step of small-320 at full generator width on
+the card against the CPU from one state (losses, gradient norm, VQ state,
+k-means' codes), the VQ kernel at k-means' shapes (means drawn with
+replacement, the pack made per call), the step of the small-320 YAML at
+batch 40 x 3 s timed (memory, phases, profile, 202 VQ launches on the first
+step and 2 after), and tools/train.py as a subprocess whose checkpoint
+reloads through from_train_checkpoint and, exported to the Lightning
+layout, through from_pretrained0828.
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -614,6 +623,286 @@ def compress_phase(model, spec) -> dict:
     return out
 
 
+TRAIN_CONFIG = "configs/wavtokenizer_small_320_24k_4096.yaml"
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def train_card_vs_cpu(K) -> dict:
+    """Phase 12 (a): one training step of small-320 at full generator width
+    (discriminators at 1/8, 2 x 1 s, no dropout, bandwidth 1) on the card
+    and on the CPU from one state, the first step's k-means drawing its
+    sample indices from CPU generators of one seed.  TF32 is off for the
+    whole process, so both sides run fp32."""
+    from wavtokenizer_tpu_torch import WavTokenizerSpec
+    from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.train.step import TrainConfig, create_train_state, train_step
+    from wavtokenizer_tpu_torch.train.vq_train import kmeans
+    from wavtokenizer_tpu_torch.train.wnorm import fold_tree
+
+    spec = WavTokenizerSpec()
+    tcfg = TrainConfig(disc_channels_scale=0.125, pos_dropout=0.0)
+    audio = torch.as_tensor((np.random.default_rng(12).normal(size=(2, 24000)) * 0.1)
+                            .astype(np.float32))
+    states = {dev: create_train_state(spec, tcfg, seed=0, device=dev) for dev in ("cpu", "cuda")}
+    out = {}
+    # k-means of the first step, replayed on both devices from one draw.
+    with torch.no_grad():
+        emb = {dev: seanet_encode(fold_tree(st["gen"]["encoder"]), spec.seanet,
+                                  audio.to(dev)[:, :, None], front=False).reshape(-1, 512)
+               for dev, st in states.items()}
+        km = {dev: kmeans(x, spec.vq.bins, spec.vq.kmeans_iters, torch.Generator().manual_seed(5))
+              for dev, x in emb.items()}
+    torch.cuda.synchronize()
+    codes_card, codes_cpu = km["cuda"][2].cpu().int(), km["cpu"][2].int()
+    out["kmeans_rows"] = int(codes_cpu.numel())
+    out["kmeans_flips"] = int((codes_card != codes_cpu).sum())
+    out["kmeans_gap"] = vq_distance_gap(emb["cpu"], km["cpu"][0], codes_card, codes_cpu)
+    out["kmeans_means_rel"] = rel_max(km["cuda"][0].cpu(), km["cpu"][0])
+    metrics = {}
+    for dev, st in states.items():
+        K.reset_launch_counts()
+        _, m = train_step(st, audio.to(dev), spec, tcfg, torch.Generator().manual_seed(0),
+                          with_grad_norm=True, bandwidth_id=1)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            out["launches"] = K.vq_nearest.launches
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+    rels = {k: rel_err(metrics["cuda"][k], v) for k, v in metrics["cpu"].items()}
+    out["loss_rel"] = max(v for k, v in rels.items() if k != "grad_norm")
+    out["worst"] = max((k for k in rels if k != "grad_norm"), key=rels.get)
+    out["grad_norm_rel"] = rels["grad_norm"]
+    out["vq_rel"] = max(rel_max(states["cuda"]["vq"][k].cpu(), states["cpu"]["vq"][k])
+                        for k in ("embed", "embed_avg", "cluster_size"))
+    out["metrics"] = metrics["cuda"]
+    out["kmeans_iters"] = spec.vq.kmeans_iters
+    check(all(np.isfinite(v) for v in metrics["cuda"].values()), f"non-finite losses {metrics}")
+    check(out["launches"] == spec.vq.kmeans_iters + 2,
+          f"first training step launched vq_nearest {out['launches']} times, expected "
+          f"{spec.vq.kmeans_iters + 2}")
+    check(out["loss_rel"] <= 1e-3,
+          f"train step card vs CPU: {out['worst']} rel {out['loss_rel']:.3g}")
+    check(out["grad_norm_rel"] <= 1e-3,
+          f"train step card vs CPU grad norm rel {out['grad_norm_rel']:.3g}")
+    check(out["vq_rel"] <= 1e-4, f"train step card vs CPU VQ state rel {out['vq_rel']:.3g}")
+    return out
+
+
+def off_float64_nearest(x: torch.Tensor, embed: torch.Tensor, picks: dict) -> dict:
+    """For each version's ids (N,), the number of rows whose code lies
+    farther than the float64 nearest one.  The float64 search runs on rows
+    and codes centred by the rows' mean (the same distances, without the
+    offset that fp32 cannot resolve); each chosen code's distance is then
+    summed directly, so an exact copy of the nearest code ties it."""
+    with torch.no_grad():
+        mu = x.double().mean(0)
+        xc, ec = x.double() - mu, embed.double() - mu
+        d = (xc * xc).sum(1, keepdim=True) - 2.0 * xc @ ec.T + (ec * ec).sum(1)[None]
+        best = d.argmin(1)
+        dist = lambda ids: ((xc - ec[ids.long()]) ** 2).sum(1)
+        nearest = dist(best)
+        return {k: int((dist(v) > nearest).sum()) for k, v in picks.items()}
+
+
+def train_timing(K) -> dict:
+    """Phase 12 (b) and (c): the spec and TrainConfig of the small-320 YAML
+    (k-means 200 iterations), the discriminators at full width, batch 40 x
+    3 s of seeded noise; the VQ kernel at k-means' shapes on this batch's
+    encoder output; then the step timed."""
+    import os
+
+    import yaml
+
+    from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.train.step import (create_train_state, discriminator_phase,
+                                                   generator_phase, train_step)
+    from wavtokenizer_tpu_torch.train.trainer import step_generator, train_config_from_yaml
+    from wavtokenizer_tpu_torch.train.wnorm import fold_tree
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TRAIN_CONFIG)) as f:
+        spec, tcfg, data, _ = train_config_from_yaml(yaml.safe_load(f))
+    out = {"B": data.batch_size, "T": data.num_samples}
+    state = create_train_state(spec, tcfg, seed=0, device="cuda")
+    audio = torch.as_tensor((np.random.default_rng(14).normal(size=(out["B"], out["T"])) * 0.1)
+                            .astype(np.float32)).cuda()
+
+    # (b) k-means' search: this batch's encoder output against means drawn
+    # with replacement (duplicates: exact ties), the pack made per call.
+    # The random encoder's rows lie within ~1e-7 (squared) of each other on
+    # a common offset whose |x|^2 is far larger, so no fp32 evaluation of
+    # |x|^2 - 2 x.e + |e|^2 (the plain version's or the kernel's) can tell a
+    # row's own copy from its neighbours': the rows are centred first (the
+    # distances stay, the offset's rounding goes), as the port's tests do.
+    # The uncentred rows, which the main path's k-means searches, are held
+    # to float64 instead: the kernel may pick a code other than the float64
+    # nearest on no more rows than the plain version does.
+    with torch.no_grad():
+        raw = seanet_encode(fold_tree(state["gen"]["encoder"]), spec.seanet, audio[:, :, None],
+                            front=False).reshape(-1, spec.vq.dimension).contiguous()
+        x = (raw - raw.mean(0)).contiguous()
+    N, D, C = x.shape[0], x.shape[1], spec.vq.bins
+    idx = torch.randint(0, N, (C,), generator=torch.Generator().manual_seed(13))
+    raw_means = raw[idx.cuda()]
+    wrong = off_float64_nearest(raw, raw_means, {
+        "kernel": K.vq_nearest(raw, raw_means),
+        "plain": K.vq_nearest_reference(raw, raw_means)})
+    out["raw_wrong"] = wrong
+    check(wrong["kernel"] <= wrong["plain"],
+          f"vq_nearest on the uncentred k-means rows: {wrong['kernel']} rows off the float64 "
+          f"nearest code, the plain version {wrong['plain']}")
+    del raw, raw_means
+    means = x[idx.cuda()]
+    got = K.vq_nearest(x, means)
+    want = K.vq_nearest_reference(x, means)
+    torch.cuda.synchronize()
+    out["vq_flips"] = int((got != want).sum())
+    out["vq_gap"] = vq_distance_gap(x, means, got, want)
+    first = {}
+    for j, i in enumerate(idx.tolist()):
+        first.setdefault(i, j)
+    rows = torch.tensor(sorted(first))
+    lowest = torch.tensor([first[i] for i in rows.tolist()], dtype=torch.int32)
+    out["dup_rows"] = int(rows.numel())
+    out["dup_not_lowest"] = int((got.cpu()[rows] != lowest).sum())
+    check(torch.equal(got.cpu()[rows], want.cpu()[rows]),
+          "vq_nearest: rows with exact copies among the means differ from the plain search")
+    out["vq_ms"] = cuda_ms(lambda: K.vq_nearest(x, means), 20)
+    out["vq_plain_ms"] = cuda_ms(lambda: K.vq_nearest_reference(x, means), 20)
+    out["vq_bound_ms"], out["vq_bound_by"] = vq_bound_of(N, C, D)
+    out["N"], out["C"], out["D"] = N, C, D
+    del x, means, got, want
+
+    # (c) the step.
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = train_step(state, audio, spec, tcfg, step_generator(0, 0))
+    torch.cuda.synchronize()
+    out["first_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches_first"] = K.vq_nearest.launches
+    out["first_metrics"] = {k: float(v) for k, v in m.items()}
+    train_step(state, audio, spec, tcfg, step_generator(0, 1))       # warm-up
+    times, launches = [], []
+    for step in (2, 3, 4):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = train_step(state, audio, spec, tcfg, step_generator(0, step))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(K.vq_nearest.launches)
+        check(all(bool(torch.isfinite(v)) for v in m.values()), f"non-finite losses at step {step}")
+    out["step_ms"], out["launches_per_step"] = times, launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    # The two phases of one more step, each timed alone (no dropout).
+    g = step_generator(0, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vq, _ = discriminator_phase(state, audio, spec, tcfg, 0, 1, g)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    generator_phase(state, vq, audio, spec, tcfg, 0, 1, g)
+    torch.cuda.synchronize()
+    out["disc_ms"], out["gen_ms"] = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    split, out["idle"] = traced(lambda: train_step(state, audio, spec, tcfg, step_generator(0, 6)))
+    out["busy_ms"] = sum(ms for ms, _ in split.values())
+    out["ops"] = sum(n for _, n in split.values())
+    out["profile"] = kernel_lines(split, 10)
+    out["kmeans_iters"] = spec.vq.kmeans_iters
+    check(out["launches_first"] == spec.vq.kmeans_iters + 2,
+          f"first step launched vq_nearest {out['launches_first']} times, expected "
+          f"{spec.vq.kmeans_iters + 2}")
+    check(launches == [2, 2, 2], f"vq_nearest launches per later step {launches}, expected 2")
+    check(all(np.isfinite(v) for v in out["first_metrics"].values()),
+          "non-finite first-step losses")
+    return out
+
+
+def train_cli_phase(spec) -> dict:
+    """Phase 12 (d): ``tools.train fit`` as a subprocess on 8 WAVs of 3.5 s
+    (batch 8) with the small-320 YAML, 3 batches; its checkpoint through
+    ``from_train_checkpoint``, and its Lightning export through
+    ``from_pretrained0828`` against the same model on the CPU."""
+    import json as _json
+    import os
+    import tempfile
+
+    import yaml
+    from scipy.io import wavfile
+
+    from wavtokenizer_tpu_torch import WavTokenizer
+    from wavtokenizer_tpu_torch.checkpoint.export import (export_training_state_dict,
+                                                          save_torch_checkpoint)
+    from wavtokenizer_tpu_torch.utils.golden import golden_clip, max_flips
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sr = spec.sample_rate
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(15)
+        files = []
+        for i in range(8):
+            t = np.arange(int(3.5 * sr)) / sr
+            y = 0.3 * np.sin(2 * np.pi * (180 + 45 * i) * t) + 0.05 * rng.normal(size=t.size)
+            files.append(os.path.join(d, f"clip{i}.wav"))
+            wavfile.write(files[-1], sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        filelist = os.path.join(d, "files.txt")
+        with open(filelist, "w") as f:
+            f.write("\n".join(files) + "\n")
+        with open(os.path.join(root, TRAIN_CONFIG)) as f:
+            cfg = yaml.safe_load(f)
+        for part in ("train_params", "val_params"):
+            cfg["data"]["init_args"][part].update(filelist_path=filelist, batch_size=8)
+        cfg_path, run = os.path.join(d, "train.yaml"), os.path.join(d, "run")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "wavtokenizer_tpu_torch.tools.train", "fit",
+                              "--config", cfg_path, "--out-dir", run, "--max-batches", "3"],
+                             cwd=root, capture_output=True, text=True, timeout=900)
+        out["cli_s"] = time.perf_counter() - t0
+        check(res.returncode == 0, f"tools.train fit failed:\n{res.stderr[-3000:]}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [_json.loads(line) for line in f]
+        steps = [r for r in rows if "gen_total" in r]
+        check(bool(steps) and steps[0]["step"] == 0
+              and all(np.isfinite(v) for v in steps[0].values()), f"metrics.jsonl rows {rows}")
+        out["rows"], out["row0"] = len(rows), steps[0]
+        ckpt_path = os.path.join(run, "last.pt")
+        out["ckpt_gb"] = os.path.getsize(ckpt_path) / 1e9
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        check(ckpt["step"] == 3, f"checkpoint at step {ckpt['step']}, expected 3")
+        trained = WavTokenizer.from_train_checkpoint(cfg_path, ckpt_path)
+        lightning = os.path.join(d, "export.ckpt")
+        save_torch_checkpoint(lightning, export_training_state_dict(ckpt, spec))
+        del ckpt
+        card = WavTokenizer.from_pretrained0828(cfg_path, lightning)
+        cpu = WavTokenizer.from_pretrained0828(cfg_path, lightning, device="cpu")
+        clip = golden_clip(spec)
+        feats, codes = card.encode_infer(clip)
+        wave = card.decode(feats, 0)
+        codes_trained = trained.encode_infer(clip)[1]
+        codes_cpu = cpu.encode_infer(clip)[1]
+        torch.cuda.synchronize()
+        check(tuple(wave.shape) == clip.shape and bool(torch.isfinite(wave).all()),
+              f"exported model's waveform shape {tuple(wave.shape)} or non-finite values")
+        out["n_ids"] = codes.numel()
+        out["distinct"] = int(codes.unique().numel())
+        out["trained_vs_0828"] = int((codes_trained != codes).sum())
+        out["card_vs_cpu"] = int((codes.cpu() != codes_cpu).sum())
+        check(out["trained_vs_0828"] <= max_flips(out["n_ids"]),
+              f"from_train_checkpoint vs from_pretrained0828: {out['trained_vs_0828']} ids differ")
+        check(out["card_vs_cpu"] <= max_flips(out["n_ids"]),
+              f"exported model card vs CPU codes: {out['card_vs_cpu']} differ")
+        check(len(card.discriminators["dac_mrd"]) == 3, "exported discriminators missing")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -968,17 +1257,70 @@ def main() -> int:
         f"decompress {cp['lm_decompress_s']:.3f} s for {cp['tokens']} tokens (per-step, "
         f"host-bound); card {card}")
 
+    # -- 12. training -----------------------------------------------------
+    tr = train_card_vs_cpu(K)
+    log(f"[12 train] (a) small-320 full generator width, discriminators 1/8, B=2 x 1 s, "
+        f"bandwidth 1, no dropout, card vs CPU (TF32 off, fp32 on both): first-step k-means "
+        f"({tr['kmeans_iters']} iterations) codes {tr['kmeans_flips']} of {tr['kmeans_rows']} "
+        f"differ (near-ties only; largest gap {tr['kmeans_gap']:.3g}), means rel-max "
+        f"{tr['kmeans_means_rel']:.3g}; losses rel-max {tr['loss_rel']:.3g} ({tr['worst']}; "
+        f"limit 1e-3), grad norm rel {tr['grad_norm_rel']:.3g} (limit 1e-3), VQ state rel-max "
+        f"{tr['vq_rel']:.3g} (limit 1e-4); vq_nearest launches {tr['launches']}; card {card}")
+    tt = train_timing(K)
+    log(f"[12 train] (b) vq_nearest at k-means' shape N={tt['N']} (encoder output of "
+        f"{tt['B']} x {tt['T']}) C={tt['C']} D={tt['D']}, means drawn with replacement: "
+        f"{tt['vq_flips']} ids differ from plain (near-ties only; largest gap "
+        f"{tt['vq_gap']:.3g}); {tt['dup_rows']} rows with exact copies among the means, "
+        f"{tt['dup_not_lowest']} not given the lowest copy (same as plain), on rows centred by "
+        f"their mean; on the uncentred rows, rows off the float64 nearest code: kernel "
+        f"{tt['raw_wrong']['kernel']}, plain {tt['raw_wrong']['plain']} (kernel no worse); "
+        f"kernel with the "
+        f"per-call pack {tt['vq_ms']:.4f} ms, plain {tt['vq_plain_ms']:.4f} ms, bound "
+        f"{tt['vq_bound_ms']:.4f} ms ({tt['vq_bound_by']}, 3xTF32); card {card}")
+    audio_s = tt["B"] * tt["T"] / small320.sample_rate
+    mean_ms = float(np.mean(tt["step_ms"]))
+    log(f"[12 train] (c) {TRAIN_CONFIG}, B={tt['B']} x {tt['T']} samples, discriminators at "
+        f"full width, TF32 off: first step (k-means {tt['kmeans_iters']} iterations) "
+        f"{tt['first_ms']:.1f} ms; steps " + ", ".join(f"{t:.1f}" for t in tt["step_ms"])
+        + f" ms (mean {mean_ms:.1f} ms = {audio_s / (mean_ms / 1e3):.2f} audio-s/s); phases "
+        f"alone: discriminator {tt['disc_ms']:.1f} ms, generator {tt['gen_ms']:.1f} ms "
+        f"({tt['disc_ms'] / (tt['disc_ms'] + tt['gen_ms']):.3f} / "
+        f"{tt['gen_ms'] / (tt['disc_ms'] + tt['gen_ms']):.3f}); peak memory "
+        f"{tt['peak_gb']:.2f} GB (max_memory_allocated); vq_nearest launches first step "
+        f"{tt['launches_first']}, later steps {tt['launches_per_step']}; card {card}")
+    log(f"[12 train] (c) losses: first step " + ", ".join(
+        f"{k} {v:.4g}" for k, v in tt["first_metrics"].items()) + "; last timed step "
+        + ", ".join(f"{k} {v:.4g}" for k, v in tt["metrics"].items()))
+    log(f"[12 profile] one training step B={tt['B']}: device busy {tt['busy_ms']:.1f} ms in "
+        f"{tt['ops']} device ops, idle share {tt['idle']:.4f}; top: {tt['profile']}; card {card}")
+    torch.cuda.empty_cache()
+    tc = train_cli_phase(small320)
+    log(f"[12 train] (d) tools.train fit --max-batches 3 on 8 WAVs x 3.5 s, batch 8 "
+        f"(subprocess, PyTorch's default precision): {tc['cli_s']:.1f} s, {tc['rows']} "
+        f"metrics row(s), step 0 gen_total {tc['row0']['gen_total']:.4g}, checkpoint "
+        f"{tc['ckpt_gb']:.2f} GB; from_train_checkpoint vs its Lightning export through "
+        f"from_pretrained0828: {tc['trained_vs_0828']} of {tc['n_ids']} ids differ; the export "
+        f"on the card vs the CPU: {tc['card_vs_cpu']} differ (limit {max_flips(tc['n_ids'])}; "
+        f"{tc['distinct']} distinct codes); card {card}")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:151",
-         "launches": launches["vq_nearest"], "max_abs_err": max(vq_err, ec["vq_err"]),
+         "launches": launches["vq_nearest"],
+         "max_abs_err": max(vq_err, ec["vq_err"], tt["vq_gap"], tr["kmeans_gap"]),
          "ms": vq_ms, "plain_ms": vq_plain, "bound_ms": vq_bound, "bound_by": vq_by,
          "library_ms": None,
          "encodec": {"N": ec["N"], "C": ec["C"], "D": ec["D"], "ms": ec["vq_ms"],
                      "plain_ms": ec["vq_plain_ms"], "bound_ms": ec["vq_bound_ms"],
                      "bound_by": ec["vq_bound_by"],
-                     "launches_per_encode": ec["launches_per_encode"]["vq_nearest"]}},
+                     "launches_per_encode": ec["launches_per_encode"]["vq_nearest"]},
+         "train": {"N": tt["N"], "C": tt["C"], "D": tt["D"], "ms": tt["vq_ms"],
+                   "plain_ms": tt["vq_plain_ms"], "bound_ms": tt["vq_bound_ms"],
+                   "bound_by": tt["vq_bound_by"],
+                   "off_float64_uncentred": tt["raw_wrong"],
+                   "launches_first_step": tt["launches_first"],
+                   "launches_per_step": tt["launches_per_step"][-1]}},
         {"name": "convnext_block", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/convnext.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:100",

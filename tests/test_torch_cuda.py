@@ -285,3 +285,96 @@ def test_lm_compression_lossless_on_the_card(cuda):
     codes = np.random.default_rng(0).integers(0, 1024, size=(4, 60)).astype(np.int32)
     blob = compress_codes(params, cfg, codes)
     np.testing.assert_array_equal(decompress_codes(params, cfg, blob, 4, 60), codes)
+
+
+# ---------------------------------------------------------------------------
+# Training: the VQ kernel in k-means and in the EMA forwards
+# ---------------------------------------------------------------------------
+
+def test_vq_nearest_on_kmeans_inputs_with_duplicated_means(cuda):
+    """k-means' first assignment when the batch has fewer rows than codes:
+    the means are rows drawn with replacement, so most rows have several
+    exact copies among the means (distance ~0, exact ties) and the lowest
+    index must win.  Ids equal to the plain version's."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(1500, 512, generator=g).to(cuda)
+    idx = torch.randint(0, 1500, (4096,), generator=g)
+    means = x[idx.to(cuda)]
+    got = K.vq_nearest(x, means)
+    want = K.vq_nearest_reference(x, means)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    first = {}
+    for j, i in enumerate(idx.tolist()):
+        first.setdefault(i, j)
+    drawn = torch.tensor(sorted(first))
+    assert torch.equal(got.cpu()[drawn], torch.tensor([first[i] for i in drawn.tolist()],
+                                                      dtype=torch.int32))
+
+
+def _tiny_training():
+    from wavtokenizer_tpu_torch import (ISTFTHeadConfig, SEANetConfig, VQConfig,
+                                        VocosBackboneConfig, WavTokenizerSpec)
+    from wavtokenizer_tpu_torch.train.step import TrainConfig
+
+    spec = WavTokenizerSpec(
+        seanet=SEANetConfig(dimension=16, n_filters=2, ratios=(8, 5, 4, 2)),
+        vq=VQConfig(dimension=16, bins=32, kmeans_iters=3),
+        backbone=VocosBackboneConfig(input_channels=16, dim=32, intermediate_dim=64,
+                                     num_layers=1, adanorm_num_embeddings=4),
+        head=ISTFTHeadConfig(dim=32, n_fft=1280, hop_length=320))
+    return spec, TrainConfig(max_steps=1000, disc_channels_scale=0.0625, pos_dropout=0.0)
+
+
+def test_training_vq_launches_per_step(cuda):
+    """kmeans_iters + 2 searches on the first step (k-means' iterations and
+    last assignment, which the first codebook forward reuses as its codes,
+    and the generator phase's forward), then 2 a step."""
+    from wavtokenizer_tpu_torch.train.step import create_train_state, train_step
+
+    spec, tcfg = _tiny_training()
+    state = create_train_state(spec, tcfg, seed=0, device=cuda)
+    audio = (torch.randn(2, 12160, generator=torch.Generator().manual_seed(1)) * 0.1).to(cuda)
+    counts = []
+    for step in range(3):
+        before = K.vq_nearest.launches
+        state, m = train_step(state, audio, spec, tcfg, torch.Generator().manual_seed(step))
+        torch.cuda.synchronize()
+        counts.append(K.vq_nearest.launches - before)
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert counts == [spec.vq.kmeans_iters + 2, 2, 2]
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """Two steps from one state on the card and on the CPU, TF32 off: every
+    metric within rel 1e-3 (fp32 in other orders, and the card's VQ search
+    is the kernel).  The codebook is inited around the encoder's output so
+    that its codes are well separated in fp32."""
+    from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.train.step import (create_train_state, train_step, tree_map)
+    from wavtokenizer_tpu_torch.train.wnorm import fold_tree
+
+    spec, tcfg = _tiny_training()
+    audio = torch.randn(2, 12160, generator=torch.Generator().manual_seed(2)) * 0.1
+    cpu = create_train_state(spec, tcfg, seed=0, device="cpu")
+    with torch.no_grad():
+        emb = seanet_encode(fold_tree(cpu["gen"]["encoder"]), spec.seanet, audio[:, :, None],
+                            front=False).reshape(-1, 16)
+    code = emb.mean(0) + torch.randn(32, 16, generator=torch.Generator().manual_seed(3)) \
+        * emb.std(0) * 3
+    cpu["vq"] = {"embed": code[None], "embed_avg": code[None].clone(),
+                 "cluster_size": torch.ones(1, 32), "inited": torch.ones(1, 1)}
+    card = create_train_state(spec, tcfg, seed=0, device=cuda)
+    card["vq"] = tree_map(lambda t: t.to(cuda), cpu["vq"])
+    with full_fp32():
+        for step in range(2):
+            _, m_cpu = train_step(cpu, audio, spec, tcfg, torch.Generator().manual_seed(step),
+                                  bandwidth_id=step + 1)
+            _, m_card = train_step(card, audio.to(cuda), spec, tcfg,
+                                   torch.Generator().manual_seed(step), bandwidth_id=step + 1)
+            for k, v in m_cpu.items():
+                assert abs(float(m_card[k]) - float(v)) <= 1e-3 * abs(float(v)), (step, k)
+    for k in cpu["vq"]:
+        want = cpu["vq"][k]
+        assert float((card["vq"][k].cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -21,7 +21,7 @@ from wavtokenizer_tpu.models.init import init_backbone, init_seanet
 from wavtokenizer_tpu.ops.conv import sconv1d as j_sconv1d
 from wavtokenizer_tpu.ops.lstm import slstm as j_slstm
 from wavtokenizer_tpu.ops.spectral import istft_same as j_istft_same
-from wavtokenizer_tpu_torch.api.pretrained import _backbone, seanet_from_jax
+from wavtokenizer_tpu_torch.api.pretrained import backbone_from_jax, seanet_from_jax
 from wavtokenizer_tpu_torch.models import quantize as tq
 from wavtokenizer_tpu_torch.models import seanet as ts
 from wavtokenizer_tpu_torch.models import vocos as tv
@@ -117,7 +117,7 @@ def test_vocos_backbone_matches_jax(adanorm):
     bw = 2 if adanorm else None
     want = jv.vocos_backbone(params, jcfg, jnp.asarray(x), bandwidth_id=bw)
     with torch.no_grad():
-        got = tv.vocos_backbone(_backbone(params, "cpu"), tcfg, torch.from_numpy(x),
+        got = tv.vocos_backbone(backbone_from_jax(params, "cpu"), tcfg, torch.from_numpy(x),
                                 bandwidth_id=bw)
     assert got.shape == want.shape
     # bf16 matmul operands in the port's ConvNeXt (each product off by up to

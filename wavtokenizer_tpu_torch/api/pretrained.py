@@ -3,6 +3,8 @@
 Port of ``wavtokenizer_tpu/api/pretrained.py`` (ref decoder/pretrained.py):
 
     wt = WavTokenizer.from_pretrained0802(config_path, model_path)  # or
+    wt = WavTokenizer.from_pretrained0828(config_path, model_path)  # + discriminators
+    wt = WavTokenizer.from_train_checkpoint(config_path, "runs/x/last.pt")  # or
     wt = WavTokenizer.from_state_dict(state_dict, spec)              # or
     wt = WavTokenizer.from_jax_params(init_wavtokenizer(spec), spec)
     features, codes = wt.encode_infer(audio)
@@ -16,7 +18,11 @@ the card the encoder front (layers 0-6), the VQ search and the ConvNeXt
 blocks run in this package's own kernels (``ops/kernels.py``).  Inputs may
 be numpy arrays or tensors; outputs are tensors on the model's device.
 ``encodec_from_jax_params`` builds the params of ``models/encodec.py`` from
-the same kind of pytree.
+the same kind of pytree.  The training state's layouts come from the same
+converters (``seanet_from_jax``/``backbone_from_jax`` with ``train=True``,
+``train_tree_from_jax``, and their inverses), and ``train_state_from_jax``
+carries a JAX training state, optimizer moments included, into this
+package's.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ import os
 import numpy as np
 import torch
 
-from ..checkpoint.convert import (average_state_dicts, convert_wavtokenizer_state_dict,
-                                  load_torch_state_dict)
+from ..checkpoint.convert import (DISCRIMINATOR_PREFIXES, INFERENCE_PREFIXES,
+                                  average_state_dicts, convert_wavtokenizer_state_dict,
+                                  discriminator_params, load_torch_state_dict)
 from ..models import wavtokenizer as wt
 from ..models.seanet import decoder_layer_specs, encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
@@ -38,7 +45,7 @@ from .config import spec_from_config
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
 def _conv(p: dict, device) -> dict:
@@ -68,10 +75,13 @@ def _norm(p: dict, device) -> dict:
     return {k: _t(p[k], device) for k in ("weight", "bias")}
 
 
-def seanet_from_jax(params: list, specs: list, device) -> list:
+def seanet_from_jax(params: list, specs: list, device, train: bool = False) -> list:
     """The JAX package's SEANet layer params (numpy) -> this package's, for
-    the encoder or the decoder (``specs`` says which).  An encoder the front
-    kernel serves gets the kernel's weight pack under ``[0]["front"]``."""
+    the encoder or the decoder (``specs`` says which).  For inference an
+    LSTM becomes a frozen ``nn.LSTM`` and an encoder the front kernel serves
+    gets the kernel's weight pack under ``[0]["front"]``; for training
+    (``train=True``) an LSTM stays its weight tensors {"layers": [...]}, and
+    there is no pack."""
     out = []
     for p, s in zip(params, specs):
         if s.kind == "conv":
@@ -84,11 +94,13 @@ def seanet_from_jax(params: list, specs: list, device) -> list:
                 q["shortcut"] = _conv(p["shortcut"], device)
             out.append(q)
         elif s.kind == "lstm":
-            out.append({"lstm": lstm_from_layers(p["layers"], device)})
+            out.append({"layers": [{k: _t(v, device) for k, v in layer.items()}
+                                   for layer in p["layers"]]} if train
+                       else {"lstm": lstm_from_layers(p["layers"], device)})
         else:
             out.append({})
     # Any length the gate admits will do: the pack depends on the weights only.
-    if front_geometry_matches(specs, out, 1024):
+    if not train and front_geometry_matches(specs, out, 1024):
         out[0]["front"] = prepare_front_weights(out)
     return out
 
@@ -101,24 +113,33 @@ def quantizer_from_jax(params: dict, device) -> dict:
             "pack": torch.stack([pack_vq_codebook(e) for e in embed])}
 
 
-def _convnext(p: dict, device) -> dict:
-    C = np.shape(p["dwconv"]["bias"])[0]
+def _convnext(p: dict, device, train: bool) -> dict:
     q = {"dw": _t(p["dwconv"]["kernel"][:, 0, :], device).contiguous(),
          "dwb": _t(p["dwconv"]["bias"], device),
-         "w1": _t(p["pwconv1"]["weight"], device, torch.bfloat16).contiguous(),
+         "w1": _t(p["pwconv1"]["weight"], device),
          "b1": _t(p["pwconv1"]["bias"], device),
-         "w2": _t(p["pwconv2"]["weight"], device, torch.bfloat16).contiguous(),
-         "b2": _t(p["pwconv2"]["bias"], device),
-         "gamma": _t(p["gamma"] if "gamma" in p else np.ones(C), device)}
-    q["w1t"], q["w2t"] = pack_convnext_weights(q["w1"], q["w2"])
+         "w2": _t(p["pwconv2"]["weight"], device),
+         "b2": _t(p["pwconv2"]["bias"], device)}
+    if "gamma" in p:
+        q["gamma"] = _t(p["gamma"], device)
     if "adanorm" in p:
         q["adanorm"] = {k: _t(p["adanorm"][k], device) for k in ("scale", "shift")}
     else:
         q["norm"] = _norm(p["norm"], device)
+    if not train:
+        q.setdefault("gamma", torch.ones_like(q["dwb"]))
+        q["w1"] = q["w1"].to(torch.bfloat16).contiguous()
+        q["w2"] = q["w2"].to(torch.bfloat16).contiguous()
+        q["w1t"], q["w2t"] = pack_convnext_weights(q["w1"], q["w2"])
     return q
 
 
-def _backbone(p: dict, device) -> dict:
+def backbone_from_jax(p: dict, device, train: bool = False) -> dict:
+    """The JAX package's backbone params (numpy) -> this package's on
+    ``device``.  For inference (``train=False``) the ConvNeXt matmul weights
+    are bf16 with the kernel's K-major packs; for training they stay fp32,
+    without packs, and every tensor is one of the JAX tree's leaves
+    re-laid-out (so the same function maps optimizer moments)."""
     pos = p["pos_net"]
 
     def resnet(r):
@@ -135,9 +156,128 @@ def _backbone(p: dict, device) -> dict:
                     resnet(pos[4]), _norm(pos[5], device)],
         "norm": ({k: _t(norm[k], device) for k in ("scale", "shift")}
                  if "scale" in norm else _norm(norm, device)),
-        "convnext": [_convnext(b, device) for b in p["convnext"]],
+        "convnext": [_convnext(b, device, train) for b in p["convnext"]],
         "final_layer_norm": _norm(p["final_layer_norm"], device),
     }
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _conv_to_jax(c: dict) -> dict:
+    return {"kernel": _np(c["weight"]).transpose(2, 1, 0), "bias": _np(c["bias"])}
+
+
+def backbone_to_jax(q: dict) -> dict:
+    """Inverse of ``backbone_from_jax(train=True)``: this package's fp32
+    backbone -> the JAX package's layout, in numpy."""
+    norm = lambda n: {k: _np(v) for k, v in n.items()}
+    pos = q["pos_net"]
+
+    def resnet(r):
+        return {"norm1": norm(r["norm1"]), "conv1": _conv_to_jax(r["conv1"]),
+                "norm2": norm(r["norm2"]), "conv2": _conv_to_jax(r["conv2"])}
+
+    def block(b):
+        out = {"dwconv": {"kernel": _np(b["dw"])[:, None, :], "bias": _np(b["dwb"])},
+               "pwconv1": {"weight": _np(b["w1"]), "bias": _np(b["b1"])},
+               "pwconv2": {"weight": _np(b["w2"]), "bias": _np(b["b2"])}}
+        if "gamma" in b:
+            out["gamma"] = _np(b["gamma"])
+        out["adanorm" if "adanorm" in b else "norm"] = norm(b.get("adanorm", b.get("norm")))
+        return out
+
+    attn = {"norm": norm(pos[2]["norm"]),
+            **{n: {"kernel": _np(pos[2][n]["weight"])[None], "bias": _np(pos[2][n]["bias"])}
+               for n in ("q", "k", "v", "proj_out")}}
+    return {"embed": _conv_to_jax(q["embed"]),
+            "pos_net": [resnet(pos[0]), resnet(pos[1]), attn, resnet(pos[3]),
+                        resnet(pos[4]), norm(pos[5])],
+            "norm": norm(q["norm"]),
+            "convnext": [block(b) for b in q["convnext"]],
+            "final_layer_norm": norm(q["final_layer_norm"])}
+
+
+def encoder_to_jax(params: list, specs: list) -> list:
+    """Inverse of ``seanet_from_jax(train=True)`` for an encoder: folded
+    convs and LSTM layers -> the JAX package's layout, in numpy."""
+    out = []
+    for p, s in zip(params, specs):
+        if s.kind == "conv":
+            out.append(_conv_to_jax(p))
+        elif s.kind == "resblock":
+            q = {"block": [_conv_to_jax(c) for c in p["block"]]}
+            if "shortcut" in p:
+                q["shortcut"] = _conv_to_jax(p["shortcut"])
+            out.append(q)
+        elif s.kind == "lstm":
+            out.append({"layers": [{k: _np(v) for k, v in layer.items()}
+                                   for layer in p["layers"]]})
+        else:
+            out.append({})
+    return out
+
+
+def train_tree_from_jax(tree, device):
+    """A tree of the JAX package's training-form convs -> this package's:
+    every {v, g, ...} node's v and g re-laid-out channel-first ((K, C_in,
+    C_out) -> (C_out, C_in, K); (Kh, Kw, C_in, C_out) -> (C_out, C_in, Kh,
+    Kw); g alike), every other array copied to a tensor on ``device``.  Works
+    on optimizer moments too, which have the params' shapes."""
+    if isinstance(tree, dict):
+        if "v" in tree and "g" in tree:
+            perm = (2, 1, 0) if np.ndim(tree["v"]) == 3 else (3, 2, 0, 1)
+            out = {k: train_tree_from_jax(v, device) for k, v in tree.items()}
+            out["v"] = _t(np.transpose(tree["v"], perm), device).contiguous()
+            out["g"] = _t(np.transpose(tree["g"], perm), device).contiguous()
+            return out
+        return {k: train_tree_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [train_tree_from_jax(v, device) for v in tree]
+    return _t(tree, device)
+
+
+def train_state_from_jax(state: dict, spec: WavTokenizerSpec, tcfg, device="cuda") -> dict:
+    """The JAX package's train state (``train/step.py::create_train_state``
+    or ``train_step`` output, as numpy: ``jax.device_get(state)``) -> this
+    package's (``train/step.py``), so that a JAX step can be continued here.
+
+    Carries the (v, g) encoder, backbone, head, discriminators, VQ state,
+    decoder and step and, when present, optax's AdamW state: the moments
+    ``mu``/``nu`` re-laid-out like their params, the update count as each
+    tensor's AdamW step, and the schedule's count as the LambdaLR's
+    position.  ``tcfg`` is this package's ``TrainConfig``."""
+    from ..train.step import new_train_state, tree_leaves
+
+    device = torch.device(device)
+
+    def gen_from_jax(g):
+        return {"encoder": train_tree_from_jax(g["encoder"], device),
+                "backbone": backbone_from_jax(g["backbone"], device, train=True),
+                "head": train_tree_from_jax(g["head"], device)}
+
+    disc_from_jax = lambda d: train_tree_from_jax(d, device)
+    out = new_train_state(gen_from_jax(state["gen"]), disc_from_jax(state["disc"]),
+                          train_tree_from_jax(state["vq"], device),
+                          train_tree_from_jax(state["decoder"], device), tcfg,
+                          step=int(np.asarray(state["step"])))
+    for name, convert in (("gen", gen_from_jax), ("disc", disc_from_jax)):
+        opt_state = state.get(f"opt_{name}")
+        if opt_state is None:
+            continue
+        adam = next(s for s in opt_state if hasattr(s, "mu"))
+        sched_count = int(np.asarray(
+            [s for s in opt_state if hasattr(s, "count") and not hasattr(s, "mu")][-1].count))
+        opt, sched = out[f"opt_{name}"], out[f"sched_{name}"]
+        step = torch.tensor(float(np.asarray(adam.count)))
+        for p, m, v in zip(opt.param_groups[0]["params"], tree_leaves(convert(adam.mu)),
+                           tree_leaves(convert(adam.nu))):
+            opt.state[p] = {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+        sched.last_epoch = sched_count
+        for group in opt.param_groups:
+            group["lr"] = sched.lr_lambdas[0](sched_count)
+    return out
 
 
 def encodec_from_jax_params(params_np: dict, cfg, device="cuda") -> dict:
@@ -166,7 +306,7 @@ def from_jax_params(params_np: dict, spec: WavTokenizerSpec, device="cuda") -> d
     device = torch.device(device)
     return {
         **encodec_from_jax_params(params_np, spec, device),
-        "backbone": _backbone(params_np["backbone"], device),
+        "backbone": backbone_from_jax(params_np["backbone"], device),
         "head": {"out": {"weight": _t(params_np["head"]["out"]["weight"], device),
                          "bias": _t(params_np["head"]["out"]["bias"], device)}},
     }
@@ -200,6 +340,32 @@ class WavTokenizer:
         (ref decoder/pretrained.py:95-114).  The YAML needs PyYAML."""
         spec = spec_from_config(config_path)
         return cls.from_state_dict(load_torch_state_dict(model_path), spec, device)
+
+    @classmethod
+    def from_pretrained0828(cls, config_path: str, model_path: str,
+                            device="cuda") -> "WavTokenizer":
+        """As ``from_pretrained0802``, for a checkpoint that also carries
+        the MPD/MRD (and DAC) discriminators (ref
+        decoder/pretrained_model.py:52-86): they are kept, in the training
+        layout (``train/discriminators.py``, numpy), as
+        ``self.discriminators``."""
+        spec = spec_from_config(config_path)
+        sd = load_torch_state_dict(model_path,
+                                   prefixes=INFERENCE_PREFIXES + DISCRIMINATOR_PREFIXES)
+        model = cls.from_state_dict(sd, spec, device)
+        model.discriminators = discriminator_params(sd)
+        return model
+
+    @classmethod
+    def from_train_checkpoint(cls, config_path: str, ckpt_path: str,
+                              device="cuda") -> "WavTokenizer":
+        """One of this package's training checkpoints (``Trainer`` output:
+        ``last.pt``, ``wavtokenizer_checkpoint_step=...pt``) for inference:
+        weight norm folded, the codebook, backbone and head as trained."""
+        from ..train.step import state_to_inference_params
+        spec = spec_from_config(config_path)
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        return cls.from_jax_params(state_to_inference_params(ckpt, spec), spec, device)
 
     @classmethod
     def from_pretrained0911(cls, config_path: str, model_folder_path: str,

@@ -12,6 +12,10 @@ and every tensor re-laid-out channel-last like the JAX package:
 ``from_jax_params``, so weights reach this package by one road.  Values may
 be torch tensors or numpy arrays.  ``convert_encodec_state_dict`` reads a
 pretrained EnCodec model's state dict the same way.
+
+The discriminators (``discriminator_params``, for ``from_pretrained0828``
+and the surgical training resume) stay in weight-norm (v, g) form and in
+PyTorch's own layout, the training state's (``train/discriminators.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ class TrackedStateDict:
         if hasattr(v, "detach"):
             v = v.detach().cpu().numpy()
         return np.asarray(v, dtype=np.float32)
+
+    def keys(self):
+        return self._sd.keys()
 
     def unused(self) -> set[str]:
         return set(self._sd) - self.used
@@ -225,11 +232,13 @@ def convert_encodec_state_dict(sd, cfg) -> dict:
 
 
 INFERENCE_PREFIXES = ("backbone.", "head.", "feature_extractor.")
+DISCRIMINATOR_PREFIXES = ("multiperioddisc.", "multiresddisc.", "dac.")
 
 
 def load_torch_state_dict(path: str, prefixes=INFERENCE_PREFIXES) -> dict:
     """A torch/Lightning checkpoint file -> {key: np.ndarray}, keeping only
-    the keys under ``prefixes`` (ref decoder/pretrained.py:101-105).
+    the keys under ``prefixes`` (ref decoder/pretrained.py:101-105; the 0828
+    loader keeps the discriminators' too, pretrained_model.py:75-79).
 
     Tries ``weights_only=True`` first; a checkpoint that pickles other
     objects (Lightning's hyper-parameters) is loaded in full after that."""
@@ -249,3 +258,77 @@ def average_state_dicts(sds: list[dict]) -> dict:
     keys = sds[0].keys()
     return {k: np.mean([np.asarray(sd[k], dtype=np.float64) for sd in sds], axis=0)
                 .astype(np.float32) for k in keys}
+
+
+# --------------------------------------------------------------------------
+# Discriminators (from_pretrained0828 and the surgical training resume)
+# --------------------------------------------------------------------------
+
+def conv2d_wn_params(sd: TrackedStateDict, prefix: str) -> dict:
+    """A weight-normed Conv2d, kept UNFOLDED (the discriminators train):
+    {v (O, I, Kh, Kw), g (O, 1, 1, 1), bias}, the reference's own layout."""
+    if f"{prefix}.weight_v" in sd:
+        g, v = sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"]
+    elif f"{prefix}.parametrizations.weight.original0" in sd:
+        g = sd[f"{prefix}.parametrizations.weight.original0"]
+        v = sd[f"{prefix}.parametrizations.weight.original1"]
+    else:
+        raise MissingKey(f"{prefix}.weight_v")
+    return {"v": v, "g": g.reshape(-1, 1, 1, 1), "bias": sd[f"{prefix}.bias"]}
+
+
+def _disc_unit_params(sd: TrackedStateDict, p: str, n_convs: int) -> dict:
+    d = {"convs": [conv2d_wn_params(sd, f"{p}.convs.{j}") for j in range(n_convs)],
+         "conv_post": conv2d_wn_params(sd, f"{p}.conv_post")}
+    if f"{p}.emb.weight" in sd:
+        d["emb"] = sd[f"{p}.emb.weight"]
+    return d
+
+
+def discriminator_params(sd, include_dac: bool = True) -> dict:
+    """The Vocos MPD/MRD and (when present) DAC discriminators of a
+    Lightning state dict (attributes multiperioddisc / multiresddisc / dac,
+    ref experiment.py:70-74, pretrained_model.py:49-50) -> the training
+    layout of ``train/discriminators.py``, in numpy."""
+    if not isinstance(sd, TrackedStateDict):
+        sd = TrackedStateDict(sd)
+    out = {"mpd": [_disc_unit_params(sd, f"multiperioddisc.discriminators.{i}", 5)
+                   for i in range(5)],
+           "mrd": [_disc_unit_params(sd, f"multiresddisc.discriminators.{i}", 5)
+                   for i in range(3)]}
+    if include_dac and any(k.startswith("dac.") for k in sd.keys()):
+        # DAC's list: 5 MPDs (periods 2, 3, 5, 7, 11), then 3 MRDs; each
+        # conv but conv_post sits in a Sequential (WNConv2d), hence ".0".
+        out["dac_mpd"] = [
+            {"convs": [conv2d_wn_params(sd, f"dac.discriminators.{i}.convs.{j}.0")
+                       for j in range(5)],
+             "conv_post": conv2d_wn_params(sd, f"dac.discriminators.{i}.conv_post")}
+            for i in range(5)]
+        out["dac_mrd"] = [
+            {"bands": [[conv2d_wn_params(sd, f"dac.discriminators.{i}.band_convs.{b}.{j}.0")
+                        for j in range(5)] for b in range(5)],
+             "conv_post": conv2d_wn_params(sd, f"dac.discriminators.{i}.conv_post")}
+            for i in range(5, 8)]
+    return out
+
+
+def surgical_resume_params(sd, spec: WavTokenizerSpec, keep_quantizer_layers: int = 8) -> dict:
+    """Per-submodule checkpoint surgery for a training resume (ref
+    decoder/experiment.py:398-445): encoder, decoder, the quantizer's layers
+    below ``keep_quantizer_layers`` only (the reference's filter), backbone
+    and head in the JAX package's layout, and "discriminators" when the
+    checkpoint carries them."""
+    if not isinstance(sd, TrackedStateDict):
+        sd = TrackedStateDict(sd)
+    fe = "feature_extractor.encodec."
+    params = {
+        "encoder": seanet_params(sd, f"{fe}encoder.", encoder_layer_specs(spec.seanet)),
+        "decoder": seanet_params(sd, f"{fe}decoder.", decoder_layer_specs(spec.seanet)),
+        "quantizer": quantizer_params(sd, f"{fe}quantizer.",
+                                      min(spec.vq.n_q, keep_quantizer_layers)),
+        "backbone": vocos_backbone_params(sd, "backbone.", spec.backbone),
+        "head": istft_head_params(sd, "head."),
+    }
+    if any(k.startswith("multiperioddisc.") for k in sd.keys()):
+        params["discriminators"] = discriminator_params(sd)
+    return params

@@ -11,7 +11,8 @@ Activations are channel-last (B, T, C) between layers.  Params per layer:
             "front" when the geometry matches (``ops/encoder_front.py``)
 * convtr:   {"weight": (C_in, C_out, K), "bias": (C_out,)}
 * resblock: {"block": [conv, conv], "shortcut": conv (unless true_skip)}
-* lstm:     {"lstm": nn.LSTM}
+* lstm:     {"lstm": nn.LSTM}, or in training {"layers": [{w_ih, w_hh, b_ih,
+            b_hh}, ...]}, the weight tensors themselves
 * elu, final_act: {}
 
 Under ``norm="time_group_norm"`` every conv and convtr also holds
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from ..ops import kernels
 from ..ops.conv import sconv1d, sconv_transpose1d
 from ..ops.encoder_front import front_geometry_matches
-from ..ops.lstm import slstm
+from ..ops.lstm import slstm, slstm_layers
 
 
 @dataclass(frozen=True)
@@ -177,7 +178,7 @@ def _apply_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
     if spec.kind == "resblock":
         return _apply_resblock(p, spec, x)
     if spec.kind == "lstm":
-        return slstm(x, p["lstm"])
+        return slstm(x, p["lstm"]) if "lstm" in p else slstm_layers(x, p["layers"])
     if spec.kind == "elu":
         return F.elu(x)
     if spec.kind == "final_act":

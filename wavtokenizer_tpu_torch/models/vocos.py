@@ -2,11 +2,15 @@
 ISTFT head.
 
 Port of ``wavtokenizer_tpu/models/vocos.py`` (ref decoder/models.py:152-235,
-decoder/modules.py, decoder/heads.py:24-67), inference only, channel-last
-(B, T, C) throughout.  The 12 ConvNeXt blocks run in the hand-written kernel
-``ops/kernels.py::convnext_block`` on the card (bf16 matmul operands, fp32
-sums); everything else is plain PyTorch.  Convolution weights are in
-PyTorch's (C_out, C_in, K) layout, Linear weights as (C_in, C_out).
+decoder/modules.py, decoder/heads.py:24-67), channel-last (B, T, C)
+throughout.  For inference the 12 ConvNeXt blocks run in the hand-written
+kernel ``ops/kernels.py::convnext_block`` on the card (bf16 matmul operands,
+fp32 sums; ``fused=True``, the default); everything else is plain PyTorch.
+Training passes ``fused=False``: the kernel has no backward, and the JAX
+package trains the plain fp32 block
+(``wavtokenizer_tpu/train/step.py:206``), whose weights the training params
+hold in fp32.  Convolution weights are in PyTorch's
+(C_out, C_in, K) layout, Linear weights as (C_in, C_out).
 """
 
 from __future__ import annotations
@@ -63,12 +67,21 @@ def ada_layer_norm(p: dict, x: torch.Tensor, cond_id: int) -> torch.Tensor:
     return layer_norm(x) * p["scale"][cond_id] + p["shift"][cond_id]
 
 
-def pos_resnet_block(p: dict, x: torch.Tensor, groups: int) -> torch.Tensor:
-    """GroupNorm -> swish -> conv(k3) -> GroupNorm -> swish -> conv(k3) + x
-    (ref decoder/models.py:19-78; its dropout is off at inference)."""
+def pos_resnet_block(p: dict, x: torch.Tensor, groups: int,
+                     dropout_generator: torch.Generator | None = None,
+                     dropout_rate: float = 0.0) -> torch.Tensor:
+    """GroupNorm -> swish -> conv(k3) -> GroupNorm -> swish -> [dropout] ->
+    conv(k3) + x (ref decoder/models.py:19-78; the reference trains with
+    Dropout(0.1) there, models.py:66-70,200).  The dropout runs only with a
+    generator (on x's device) and a positive rate: the keep mask is uniform
+    draws below 1 - rate, the kept values scaled by 1 / (1 - rate)."""
     h = F.silu(group_norm(x, p["norm1"]["weight"], p["norm1"]["bias"], groups))
     h = conv1d(h, p["conv1"]["weight"], p["conv1"]["bias"], padding=(1, 1))
     h = F.silu(group_norm(h, p["norm2"]["weight"], p["norm2"]["bias"], groups))
+    if dropout_generator is not None and dropout_rate > 0.0:
+        keep = 1.0 - dropout_rate
+        mask = torch.rand(h.shape, generator=dropout_generator, device=h.device) < keep
+        h = torch.where(mask, h / keep, 0.0)
     h = conv1d(h, p["conv2"]["weight"], p["conv2"]["bias"], padding=(1, 1))
     return x + h
 
@@ -87,31 +100,57 @@ def attn_block(p: dict, x: torch.Tensor, groups: int) -> torch.Tensor:
     return x + out
 
 
-def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None) -> torch.Tensor:
+def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None,
+                   fused: bool = True) -> torch.Tensor:
     """ConvNeXt block (ref decoder/modules.py:8-60): depthwise conv k7 ->
-    (Ada)LN -> Linear -> exact GELU -> Linear -> layer scale -> residual."""
+    (Ada)LN -> Linear -> exact GELU -> Linear -> layer scale -> residual.
+
+    ``fused`` runs the block as ``ops/kernels.py::convnext_block`` (the
+    kernel on the card, bf16 matmul operands); ``fused=False`` is the plain
+    fp32 block that training differentiates, as the JAX package's
+    ``convnext_block(fused=False)``."""
     if "adanorm" in p:
         scale, shift = p["adanorm"]["scale"][cond_id], p["adanorm"]["shift"][cond_id]
     else:
         scale, shift = p["norm"]["weight"], p["norm"]["bias"]
-    return convnext_block_kernel(x, p["dw"], p["dwb"], scale, shift, p["w1"],
-                                 p["b1"], p["w2"], p["b2"], p["gamma"],
-                                 p.get("w1t"), p.get("w2t"))
+    if fused:
+        return convnext_block_kernel(x, p["dw"], p["dwb"], scale, shift, p["w1"],
+                                     p["b1"], p["w2"], p["b2"], p["gamma"],
+                                     p.get("w1t"), p.get("w2t"))
+    C = x.shape[-1]
+    h = conv1d(x, p["dw"].t().unsqueeze(1), p["dwb"], padding=(3, 3), groups=C)
+    if "adanorm" in p:
+        h = layer_norm(h) * scale + shift
+    else:
+        h = layer_norm(h, scale, shift)
+    h = F.gelu(h @ p["w1"] + p["b1"])
+    h = h @ p["w2"] + p["b2"]
+    if "gamma" in p:
+        h = p["gamma"] * h
+    return x + h
 
 
 def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
-                   bandwidth_id: int | None = None) -> torch.Tensor:
+                   bandwidth_id: int | None = None, fused: bool = True,
+                   dropout_generator: torch.Generator | None = None,
+                   dropout_rate: float = 0.0) -> torch.Tensor:
     """x (B, T, input_channels) -> (B, T, dim) (ref decoder/models.py:223-235):
     embed conv -> pos-net (2 resblocks, attention, 2 resblocks, GroupNorm) ->
-    (Ada)LN -> ConvNeXt stack -> final LayerNorm."""
+    (Ada)LN -> ConvNeXt stack -> final LayerNorm.  ``fused`` as in
+    ``convnext_block``; ``dropout_generator``/``dropout_rate`` turn on the
+    pos-net resblocks' training dropout (``pos_resnet_block``)."""
     g = cfg.groupnorm_groups
+
+    def res(p, x):
+        return pos_resnet_block(p, x, g, dropout_generator, dropout_rate)
+
     x = conv1d(x, params["embed"]["weight"], params["embed"]["bias"], padding=(3, 3))
     pos = params["pos_net"]
-    x = pos_resnet_block(pos[0], x, g)
-    x = pos_resnet_block(pos[1], x, g)
+    x = res(pos[0], x)
+    x = res(pos[1], x)
     x = attn_block(pos[2], x, g)
-    x = pos_resnet_block(pos[3], x, g)
-    x = pos_resnet_block(pos[4], x, g)
+    x = res(pos[3], x)
+    x = res(pos[4], x)
     x = group_norm(x, pos[5]["weight"], pos[5]["bias"], g)
     if cfg.adanorm_num_embeddings:
         if bandwidth_id is None:
@@ -120,7 +159,7 @@ def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
     else:
         x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"])
     for block in params["convnext"]:
-        x = convnext_block(block, x, cond_id=bandwidth_id)
+        x = convnext_block(block, x, cond_id=bandwidth_id, fused=fused)
     return layer_norm(x, params["final_layer_norm"]["weight"],
                       params["final_layer_norm"]["bias"])
 

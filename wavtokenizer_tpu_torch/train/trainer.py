@@ -1,0 +1,316 @@
+"""Training orchestration: what ``tools/train.py fit --config`` runs.
+
+Port of ``wavtokenizer_tpu/train/trainer.py`` (ref train.py and the
+Lightning wiring of decoder/experiment.py): per batch the discriminator
+then the generator update, a random bandwidth_id, validation with
+val_loss = mel + (5 - utmos) + (5 - pesq) + 1000 * commit
+(experiment.py:227-270), top-k checkpoints on val_loss plus the last one
+(configs/*.yaml ModelCheckpoint), JSONL metrics (the TensorBoard scalars'
+stand-in) and TensorBoard media when tensorboard is installed.
+
+On one device (``cuda`` unless the caller asks for the CPU); the JAX
+package's data-parallel mesh is not ported.  The objective evaluators
+(UTMOS, PESQ, periodicity, STOI) are not ported either: validation scores
+UTMOS and PESQ 0, so their val_loss terms are the constant 5, as in the JAX
+package when an evaluator is unavailable.  Checkpoints are ``torch.save``
+files of the whole state (params, VQ state, decoder, both optimizers and
+schedules, step).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..api.config import spec_from_config_dict
+from ..api.pretrained import WavTokenizer
+from ..checkpoint.convert import surgical_resume_params
+from ..models.wavtokenizer import WavTokenizerSpec
+from .data import DataConfig, WavDataset, data_loader
+from .helpers import TBLogger
+from .losses import mel_loss
+from .step import (TrainConfig, create_train_state, generator_forward, generator_from_jax,
+                   mel_coeff_decay, new_train_state, state_to_inference_params, to_tensors,
+                   train_step, tree_leaves, tree_map)
+
+
+def train_config_from_yaml(config: dict) -> tuple:
+    """A reference-style Lightning YAML (parsed) -> (spec, tcfg, train data,
+    val data).
+
+    The evaluate_* keys are read by nothing: the evaluators are not ported,
+    so validation scores UTMOS and PESQ 0 whatever they say.  The JAX
+    package's ``disc_compute_dtype`` is not ported either, and a YAML that
+    sets it to anything but float32 is refused.  ``num_workers`` is not
+    read: the loader is one process and yields the same batches."""
+    spec = spec_from_config_dict(config)
+    init = config.get("model", {}).get("init_args", {})
+    disc_dtype = str(init.get("disc_compute_dtype", "float32"))
+    if disc_dtype != "float32":
+        raise ValueError(f"disc_compute_dtype={disc_dtype!r} is not supported: "
+                         "the discriminators train in float32 only")
+    trainer = config.get("trainer", {})
+    tcfg = TrainConfig(
+        sample_rate=int(init.get("sample_rate", 24000)),
+        initial_learning_rate=float(init.get("initial_learning_rate", 2e-4)),
+        num_warmup_steps=int(init.get("num_warmup_steps", 0)),
+        mel_loss_coeff=float(init.get("mel_loss_coeff", 45)),
+        mrd_loss_coeff=float(init.get("mrd_loss_coeff", 1.0)),
+        pretrain_mel_steps=int(init.get("pretrain_mel_steps", 0)),
+        decay_mel_coeff=bool(init.get("decay_mel_coeff", False)),
+        max_steps=int(trainer.get("max_steps", 2_000_000)),
+        num_bandwidths=len(init.get("feature_extractor", {}).get("init_args", {})
+                           .get("bandwidths", [1, 1, 1, 1])))
+
+    def data_cfg(block):
+        if not block:
+            return None
+        return DataConfig(filelist_path=block["filelist_path"],
+                          sampling_rate=int(block.get("sampling_rate", 24000)),
+                          num_samples=int(block.get("num_samples", 72000)),
+                          batch_size=int(block.get("batch_size", 40)))
+
+    data = config.get("data", {}).get("init_args", {})
+    return spec, tcfg, data_cfg(data.get("train_params")), data_cfg(data.get("val_params"))
+
+
+def resume_from_yaml(config: dict) -> tuple:
+    """The reference's surgical-resume keys (configs/...yaml
+    resume/resume_config/resume_model, read by experiment.py:398-445):
+    (resume_config, resume_model) when ``resume: true``, else (None, None)."""
+    init = config.get("model", {}).get("init_args", {})
+    if not init.get("resume"):
+        return None, None
+    return init.get("resume_config"), init.get("resume_model")
+
+
+def surgical_train_state(spec: WavTokenizerSpec, tcfg: TrainConfig, sd: dict,
+                         seed: int = 3407, keep_quantizer_layers: int = 8,
+                         device="cuda") -> dict:
+    """A fresh state with the weights of a Lightning checkpoint's state dict
+    grafted in per submodule (ref experiment.py:398-445): encoder, decoder,
+    the quantizer's layers below ``keep_quantizer_layers``, backbone, head,
+    and the discriminators when the checkpoint has them (unit by unit, so a
+    unit without its ``emb`` keeps the fresh one).  The optimizers restart,
+    as the reference reloads module weights only.  The checkpoint's folded
+    encoder weights w re-enter as v = w, g = |w|: the same forward."""
+    device = torch.device(device)
+    fresh = create_train_state(spec, tcfg, seed=seed, device=device)
+    p = surgical_resume_params(sd, spec, keep_quantizer_layers)
+    vq = {k: v.clone() for k, v in fresh["vq"].items()}
+    kept = min(spec.vq.n_q, keep_quantizer_layers)
+    for k, v in p["quantizer"].items():
+        if k in vq:
+            vq[k][:kept] = torch.as_tensor(np.asarray(v)[:kept], device=device)
+    disc = fresh["disc"]
+    for fam, units in p.get("discriminators", {}).items():
+        if fam in disc:
+            disc[fam] = [{**fresh_unit, **to_tensors(unit, device)}
+                         for fresh_unit, unit in zip(disc[fam], units)]
+    return new_train_state(generator_from_jax(p, spec, device), disc, vq,
+                           to_tensors(p["decoder"], device), tcfg)
+
+
+_TREES = ("gen", "disc", "vq", "decoder")
+_OPTIM = ("opt_gen", "opt_disc", "sched_gen", "sched_disc")
+
+
+def save_checkpoint(path: str, state: dict) -> None:
+    """The whole state as one ``torch.save`` file, written atomically."""
+    ckpt = {k: tree_map(lambda t: t.detach(), state[k]) for k in _TREES}
+    ckpt.update({k: state[k].state_dict() for k in _OPTIM})
+    ckpt["step"] = state["step"]
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, template: dict) -> dict:
+    """Fill ``template`` (a state of the same spec and config, e.g. from
+    ``create_train_state``) from a ``save_checkpoint`` file, on the
+    template's device."""
+    device = tree_leaves(template["gen"])[0].device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    with torch.no_grad():
+        for k in ("gen", "disc"):
+            for dst, src in zip(tree_leaves(template[k]), tree_leaves(ckpt[k]), strict=True):
+                dst.copy_(src)
+    template["vq"], template["decoder"] = ckpt["vq"], ckpt["decoder"]
+    for k in _OPTIM:
+        template[k].load_state_dict(ckpt[k])
+    template["step"] = int(ckpt["step"])
+    return template
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one training step, a pure function of (seed,
+    step), so that a resumed run draws what the uninterrupted run drew."""
+    return torch.Generator().manual_seed(
+        int(np.random.default_rng((seed, step)).integers(0, 2 ** 62)))
+
+
+class Trainer:
+    """The training loop on one device."""
+
+    def __init__(self, spec: WavTokenizerSpec, tcfg: TrainConfig, train_data: DataConfig,
+                 val_data: DataConfig | None = None, out_dir: str = "runs/default",
+                 seed: int = 3407, log_every: int = 100, val_every: int = 10_000,
+                 save_top_k: int = 10, limit_val_batches: int = 100,
+                 log_media_every: int = 1000, device="cuda"):
+        self.spec, self.tcfg = spec, tcfg
+        self.train_data, self.val_data = train_data, val_data
+        self.out_dir = out_dir
+        self.seed = seed
+        self.log_every = log_every
+        self.val_every = val_every
+        self.save_top_k = save_top_k
+        self.limit_val_batches = limit_val_batches
+        self.log_media_every = log_media_every
+        self.device = torch.device(device)
+        os.makedirs(out_dir, exist_ok=True)
+        self._metrics_f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+        self._topk: list[tuple[float, str]] = []
+        self.tb = TBLogger(os.path.join(out_dir, "tb"))
+
+    def close(self) -> None:
+        self._metrics_f.close()
+        self.tb.close()
+
+    def log(self, record: dict) -> None:
+        self._metrics_f.write(json.dumps(record) + "\n")
+        self._metrics_f.flush()
+
+    def _audio(self, batch: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
+
+    # ------------------------------------------------------------------ val
+
+    def validate(self, state: dict, val_iter, step: int) -> float:
+        """val_loss = mel + (5 - 0) + (5 - 0) + 1000 * commit over up to
+        ``limit_val_batches`` batches (ref experiment.py:257-258, the
+        evaluators' scores 0), and, when TensorBoard logs, the first
+        batch's audio and mel images and the EnCodec-style resynthesis
+        through the carried SEANet decoder (ref experiment.py:272-294,
+        464-474)."""
+        spec = self.spec
+        losses, mel_losses = [], []
+        g = step_generator(self.seed + 1, step)
+        with torch.no_grad():
+            for i in range(self.limit_val_batches):
+                try:
+                    audio = self._audio(next(val_iter))
+                except StopIteration:
+                    break
+                audio_hat, commit, _ = generator_forward(state["gen"], state["vq"], spec,
+                                                         audio, 0, n_q=1, generator=g)
+                m = float(mel_loss(audio_hat, audio, spec.sample_rate))
+                mel_losses.append(m)
+                losses.append(m + 5.0 + 5.0 + 1000.0 * float(commit))
+                if i == 0 and self.tb.enabled:
+                    sr = spec.sample_rate
+                    self.tb.audio_and_spectrogram("val/reconstructed",
+                                                  audio_hat[0].cpu().numpy(), sr, step)
+                    self.tb.audio_and_spectrogram("val/original", audio[0].cpu().numpy(),
+                                                  sr, step)
+                    self.tb.audio("val/encodec", self._resynth(state, audio[:1])[0], sr, step)
+        val_loss = float(np.mean(losses)) if losses else float("inf")
+        rec = {"step": step, "val_loss": val_loss,
+               "val_mel_loss": float(np.mean(mel_losses)) if mel_losses else float("inf")}
+        self.log(rec)
+        self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
+        self.tb.flush()
+        return val_loss
+
+    def _resynth(self, state: dict, audio: torch.Tensor) -> np.ndarray:
+        """encode_infer (n_q = 1), then the carried SEANet decoder."""
+        model = WavTokenizer.from_jax_params(state_to_inference_params(state, self.spec),
+                                             self.spec, self.device)
+        return model.seanet_only_decode(model.encode_infer(audio)[0]).cpu().numpy()
+
+    def _save_topk(self, state: dict, step: int, val_loss: float) -> None:
+        path = os.path.join(self.out_dir,
+                            f"wavtokenizer_checkpoint_step={step}_val_loss={val_loss:.4f}.pt")
+        save_checkpoint(path, state)
+        self._topk.append((val_loss, path))
+        self._topk.sort()
+        while len(self._topk) > self.save_top_k:
+            _, worst = self._topk.pop()
+            os.remove(worst)
+
+    # ---------------------------------------------------------------- train
+
+    def resume_state(self, path: str) -> dict:
+        """The full state of a ``save_checkpoint`` file (crash resume,
+        Lightning's ``fit(ckpt_path=...)``): the loop restarts at its step."""
+        template = create_train_state(self.spec, self.tcfg, seed=self.seed, device=self.device)
+        state = load_checkpoint(path, template)
+        self.log({"event": "resume", "path": path, "step": state["step"]})
+        return state
+
+    def _pad_batch(self, batch: np.ndarray) -> np.ndarray:
+        """Repeat-pad an underfull last batch to the batch size: the
+        reference trains on the full last batch (drop_last=False)."""
+        want = self.train_data.batch_size
+        if batch.shape[0] >= want:
+            return batch
+        reps = -(-want // batch.shape[0])
+        return np.concatenate([batch] * reps, axis=0)[:want]
+
+    def fit(self, max_batches: int | None = None, state: dict | None = None,
+            resume_path: str | None = None) -> dict:
+        spec, tcfg = self.spec, self.tcfg
+        if state is None:
+            state = (self.resume_state(resume_path) if resume_path
+                     else create_train_state(spec, tcfg, seed=self.seed, device=self.device))
+        total = max_batches if max_batches is not None else tcfg.max_steps // 2
+        start = state["step"]
+        # A resumed run's loader starts at the batch the interrupted run
+        # would have read next.
+        train_iter = data_loader(WavDataset(self.train_data, train=True),
+                                 self.train_data.batch_size, shuffle=True, seed=self.seed,
+                                 drop_last=False, skip_batches=start)
+        val_iter = None
+        if self.val_data is not None:
+            val_iter = data_loader(WavDataset(self.val_data, train=False),
+                                   self.val_data.batch_size, shuffle=False, seed=self.seed)
+        t_last = time.time()
+        for step in range(start, total):
+            batch = self._pad_batch(next(train_iter))
+            # Multi-quantizer configs draw n_q from [4, 6, 8] per step (ref
+            # vq.py:103-108); the shipped n_q = 1 models use 1.
+            n_q = (min(int(np.random.default_rng((self.seed + 1, step)).choice([4, 6, 8])),
+                       spec.vq.n_q) if spec.vq.n_q > 1 else 1)
+            state, metrics = train_step(
+                state, self._audio(batch), spec, tcfg, step_generator(self.seed, step),
+                mel_coeff=mel_coeff_decay(tcfg, step + 1),
+                train_discriminator=step >= tcfg.pretrain_mel_steps, n_q=n_q,
+                with_grad_norm=step % self.log_every == 0)
+            if step % self.log_every == 0:
+                rec = {"step": step, **{k: float(v) for k, v in metrics.items()},
+                       "sec_per_step": (time.time() - t_last) / max(1, self.log_every)}
+                t_last = time.time()
+                self.log(rec)
+                self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
+            if step > 0 and step % self.log_media_every == 0 and self.tb.enabled:
+                self._log_train_media(state, batch, step)
+            if val_iter is not None and step > 0 and step % self.val_every == 0:
+                self._save_topk(state, step, self.validate(state, val_iter, step))
+                save_checkpoint(os.path.join(self.out_dir, "last.pt"), state)
+        save_checkpoint(os.path.join(self.out_dir, "last.pt"), state)
+        return state
+
+    def _log_train_media(self, state: dict, batch: np.ndarray, step: int) -> None:
+        """Audio and mel images every ``log_media_every`` steps (ref
+        experiment.py:195-216), from one more forward of the first row."""
+        audio = self._audio(batch[:1])
+        with torch.no_grad():
+            audio_hat, _, _ = generator_forward(state["gen"], state["vq"], self.spec, audio, 0,
+                                                n_q=1, generator=step_generator(self.seed, step))
+        sr = self.spec.sample_rate
+        self.tb.audio_and_spectrogram("train/reconstructed", audio_hat[0].cpu().numpy(), sr, step)
+        self.tb.audio_and_spectrogram("train/original", audio[0].cpu().numpy(), sr, step)
+        self.tb.flush()
