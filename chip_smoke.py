@@ -35,6 +35,15 @@ step and 2 after), and tools/train.py as a subprocess whose checkpoint
 reloads through from_train_checkpoint and, exported to the Lightning
 layout, through from_pretrained0828.
 
+Then the plain-Vocos family ([13]): the vocos-mel-24khz config
+(wavtokenizer_tpu_torch/configs/vocos_mel_24khz.yaml) at full width through
+the Vocos facade, 8 ConvNeXt-kernel launches a decode at C = 512, I = 1536,
+card against CPU and timed at batch 128 x 3 s, and the ResNet trunk with
+both IMDCT heads card against CPU.  And the metrics ([14]): a small-320
+round trip writes 4 clips, and tools/metrics_infer.py scores them as a
+subprocess on the card and on the CPU, with CREPE and UTMOS read from
+seeded random state dicts in the reference layouts.
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -107,20 +116,29 @@ def launch_counts(K) -> dict:
             "encoder_front": K.encoder_front.launches}
 
 
+# torch.profiler has returned a whole trace without device events on the
+# H100; such a trace is taken again, up to this many times in all.
+TRACE_ATTEMPTS = 3
+
+
 def traced(fn) -> tuple:
     """Run fn() once under torch.profiler (CPU and CUDA activity); returns the
     device time in ms and the launch count of every CUDA kernel by name, and
     the device idle share of the window from the first traced event to the
-    last kernel's end.  Raises when the trace holds no device activity."""
+    last kernel's end.  Raises when no attempt traced device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-    events = list(prof.events())
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+        log(f"[profile] trace {attempt} of {TRACE_ATTEMPTS} held no device activity")
     check(bool(dev), "torch.profiler traced no device activity")
     by_name: dict = {}
     for e in dev:
@@ -360,6 +378,15 @@ def vq_bound_of(N: int, C: int, D: int) -> tuple:
     codebook, |E|^2 read once, the ids written once)."""
     ops_s = 3 * 2 * N * C * D / H100_TF32_FLOPS
     bytes_s = (N * D * 4 + 2 * C * D * 4 + C * 4 + N * 4) / H100_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
+
+
+def convnext_bound(M: int, C: int, I: int) -> tuple:
+    """Least time of one ConvNeXt block over M rows (ms) and what bounds it:
+    the two GEMMs' bf16 products and the dw conv/LayerNorm/GELU/residual
+    work in fp32, against each input read once and the output written once."""
+    ops_s = 4 * M * C * I / H100_BF16_FLOPS + 14 * M * C / H100_FP32_FLOPS
+    bytes_s = (2 * M * C * 4 + 2 * C * I * 2 + (13 * C + I) * 4) / H100_BYTES
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
@@ -903,6 +930,275 @@ def train_cli_phase(spec) -> dict:
     return out
 
 
+VOCOS_CONFIG = "wavtokenizer_tpu_torch/configs/vocos_mel_24khz.yaml"
+# Vocos waveform, card against CPU on the same features: the sound runs read
+# 5.98e-05 (bf16 ConvNeXt operands summed in other orders); cuFFT's C2R fed
+# the DC and Nyquist imaginary parts read 3.4e-2.
+VOCOS_WAVE_TOL = 1e-3
+
+
+def vocos_phase(K) -> dict:
+    """Phase 13: the plain-Vocos family at the vocos-mel-24khz width through
+    the ``Vocos`` facade: the ConvNeXt trunk (8 blocks, each one
+    convnext_block launch at C = 512, I = 1536) card against CPU, then timed
+    at B = 128 x 3 s; the ResNet trunk with both IMDCT heads card against
+    CPU."""
+    from wavtokenizer_tpu_torch import Vocos, init_vocos
+    from wavtokenizer_tpu_torch.api.config import vocos_spec_from_config
+    from wavtokenizer_tpu_torch.models import vocos, vocos_model
+    from wavtokenizer_tpu_torch.models.alt_components import (IMDCTHeadConfig,
+                                                              VocosResNetBackboneConfig)
+
+    spec = vocos_spec_from_config(VOCOS_CONFIG)
+    params = init_vocos(spec, seed=0)
+    card = Vocos.from_jax_params(params, spec, device="cuda")
+    cpu = Vocos.from_jax_params(params, spec, device="cpu")
+    sr, n_blocks = spec.sample_rate, spec.backbone.num_layers
+    out = {}
+
+    # (a) B = 8 x 3 s, the facade's forward with the counts read around it;
+    # both devices then decode the card's features, so the waveform check
+    # isolates the decoder (the same bf16-operand arithmetic in another
+    # order, as in [5]).
+    audio = (np.random.default_rng(13).normal(size=(8, int(3 * sr))) * 0.1).astype(np.float32)
+    K.reset_launch_counts()
+    wave = card(audio)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts(K)
+    check(out["launches"] == {"vq_nearest": 0, "convnext_block": n_blocks, "encoder_front": 0},
+          f"vocos forward launches {out['launches']}")
+    feats = card.feature_extractor(audio)
+    feats_cpu = cpu.feature_extractor(audio)
+    out["feat_rel"] = rel_max(feats.cpu(), feats_cpu)
+    check(out["feat_rel"] < 1e-4, f"vocos features card vs CPU rel-max {out['feat_rel']:.3g}")
+    want = cpu.decode(feats.cpu())
+    check(tuple(wave.shape) == tuple(want.shape) and bool(torch.isfinite(wave).all()),
+          f"vocos waveform shape {tuple(wave.shape)} or non-finite values")
+    out["wave_rel"] = rel_max(card.decode(feats).cpu(), want)
+    check(out["wave_rel"] <= VOCOS_WAVE_TOL,
+          f"vocos card vs CPU waveform rel-max {out['wave_rel']:.3g}")
+
+    # The ConvNeXt kernel on this path's own block input, against its plain
+    # version (scale/shift are the block's plain LayerNorm weight and bias).
+    p = card.params["backbone"]
+    with torch.inference_mode():
+        x0 = feats.transpose(1, 2).contiguous()
+        blk = p["convnext"][0]
+        pre = vocos.backbone_stem(p, spec.backbone, x0).contiguous()
+        bargs = (pre, blk["dw"], blk["dwb"], blk["norm"]["weight"], blk["norm"]["bias"],
+                 blk["w1"], blk["b1"], blk["w2"], blk["b2"], blk["gamma"], blk["w1t"], blk["w2t"])
+
+        def block_check(x: torch.Tensor, tag: str) -> tuple:
+            """The block on ``x`` against its plain version: max abs err,
+            that error over the largest update max |ref - x|, and the args."""
+            args = (x,) + bargs[1:]
+            got = K.convnext_block(*args)
+            ref = K.convnext_block_reference(*args[:10])
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / float((ref - x).abs().max())
+            check(rel < 1e-2, f"convnext_block at vocos width, {tag}: rel err {rel:.3g}")
+            return err, rel, args
+
+        out["cnx_err"], out["cnx_rel_update"], _ = block_check(pre, "B=8")
+
+        # (b) B = 128 x 3 s: the decode's first 8 clips against the CPU and
+        # the kernel on this batch's own first-block input, then RTF, the
+        # stages and the kernel against its bound.
+        audio_t = torch.as_tensor(np.random.default_rng(14).normal(
+            size=(TIMING_BATCH, int(TIMING_SECONDS * sr))).astype(np.float32) * 0.1).cuda()
+        ft = card.feature_extractor(audio_t)
+        K.reset_launch_counts()
+        wave_t = card.decode(ft)
+        torch.cuda.synchronize()
+        check(K.convnext_block.launches == n_blocks,
+              f"vocos decode at B={TIMING_BATCH}: {K.convnext_block.launches} launches")
+        out["wave_rel_t"] = rel_max(wave_t[:8].cpu(), cpu.decode(ft[:8].cpu()))
+        check(out["wave_rel_t"] <= VOCOS_WAVE_TOL,
+              f"vocos B={TIMING_BATCH} decode, clips 0-7 card vs CPU waveform rel-max "
+              f"{out['wave_rel_t']:.3g}")
+        xt = ft.transpose(1, 2)
+        out["cnx_err_t"], out["cnx_rel_update_t"], targs = block_check(
+            vocos.backbone_stem(p, spec.backbone, xt.contiguous()).contiguous(),
+            f"B={TIMING_BATCH}")
+        ht = vocos.vocos_backbone(p, spec.backbone, xt)
+        out["stages"] = {
+            "features": cuda_ms(lambda: vocos_model.vocos_features(card.params, spec, audio_t), 10),
+            "backbone": cuda_ms(lambda: vocos.vocos_backbone(p, spec.backbone, xt), 5),
+            "head": cuda_ms(lambda: vocos.istft_head(card.params["head"], spec.head, ht), 10),
+        }
+        out["rt_ms"] = cuda_ms(lambda: card(audio_t), 5)
+        out["rtf"] = TIMING_BATCH * TIMING_SECONDS / (out["rt_ms"] / 1e3)
+        M, C, I = TIMING_BATCH * ft.shape[-1], blk["w1"].shape[0], blk["w1"].shape[1]
+        out["ms"] = cuda_ms(lambda: K.convnext_block(*targs), 20)
+        out["plain_ms"] = cuda_ms(lambda: K.convnext_block_reference(*targs[:10]), 20)
+        out["bound_ms"], out["bound_by"] = convnext_bound(M, C, I)
+        hb = torch.randn(M, C, generator=torch.Generator().manual_seed(16)).to("cuda",
+                                                                                torch.bfloat16)
+        gb = torch.randn(M, I, generator=torch.Generator().manual_seed(17)).to("cuda",
+                                                                                torch.bfloat16)
+        out["gemm_ms"] = cuda_ms(lambda: (hb @ blk["w1"], gb @ blk["w2"]), 20)
+        out.update(M=M, C=C, I=I)
+        split, out["idle"] = traced(lambda: card(audio_t))
+        out["profile"] = kernel_lines(split, 8)
+        out["busy_ms"] = sum(ms for ms, _ in split.values())
+
+    # (c) the ResNet trunk with both IMDCT heads at dim 512, frame 512 (hop
+    # 256, the features' hop): card against CPU, B = 2 x 3 s, fp32 on both.
+    out["resnet"] = {}
+    for head_kind in ("imdct_cos", "imdct_symexp"):
+        rspec = vocos_model.VocosSpec(
+            features=spec.features, backbone_kind="resnet",
+            backbone=VocosResNetBackboneConfig(input_channels=100, dim=512, num_blocks=3),
+            head_kind=head_kind, head=IMDCTHeadConfig(dim=512, mdct_frame_len=512))
+        rp = init_vocos(rspec, seed=0)
+        rc, rcpu = (Vocos.from_jax_params(rp, rspec, device=d) for d in ("cuda", "cpu"))
+        K.reset_launch_counts()
+        w = rc(audio[:2])
+        torch.cuda.synchronize()
+        check(launch_counts(K) == {"vq_nearest": 0, "convnext_block": 0, "encoder_front": 0},
+              f"resnet vocos launched {launch_counts(K)}")
+        rel = rel_max(w.cpu(), rcpu(audio[:2]))
+        check(bool(torch.isfinite(w).all()) and rel <= 1e-3,
+              f"resnet+{head_kind} card vs CPU rel-max {rel:.3g}")
+        out["resnet"][head_kind] = rel
+    return out
+
+
+def _speech_like(sr: int, n: int, seed: int) -> np.ndarray:
+    """A gliding harmonic series under a syllable-rate envelope, with a
+    pause and a faint noise floor."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    f0 = 110.0 + 90.0 * (0.5 + 0.5 * np.sin(2 * np.pi * (0.5 + 0.1 * seed) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    y = sum((0.6 / k) * np.sin(k * phase) for k in range(1, 10))
+    env = np.clip(np.sin(2 * np.pi * 3.0 * t), 0.0, None) ** 0.5
+    env[(t > 0.55 * t[-1]) & (t < 0.7 * t[-1])] = 0.0
+    return (0.3 * env * y + 0.003 * rng.normal(size=n)).astype(np.float32)
+
+
+# [14]: CLI metrics on the card against the same CLI on the CPU.  The numpy
+# metrics read the same files with the same code (equal); CREPE and UTMOS
+# run in fp32 with TF32 off on both, in other summation orders.
+METRICS_NUMPY = ("stoi", "pesq_wb", "snr_db", "mel_dist", "env_sim")
+# A decoded CREPE bin that moves by one (20 cents) on one frame of a 2 s clip
+# (~190 frames) moves the pitch RMSE by at most ~1.5 cents.
+METRICS_LIMITS = {"utmos": ("rel", 1e-3), "periodicity_rmse": ("abs", 1e-4),
+                  "voiced_f1": ("abs", 1e-3), "pitch_rmse_cents": ("abs", 2.0)}
+# CREPE salience, card against CPU, over its input-dependent part: float32
+# against float64 on the CPU reads ~2e-4 of it.
+SALIENCE_TOL = 1e-2
+
+
+def metrics_phase(model, spec, K) -> dict:
+    """Phase 14: a small-320 round trip on the card writes 4 clips (2 s)
+    and their references as WAVs; tools/metrics_infer.py runs on them as a
+    subprocess with --device cuda and with --device cpu, CREPE full and
+    UTMOS (12 layers) read from seeded random state dicts written here in
+    the reference layouts; then, in this process, CREPE's salience card
+    against CPU and the two nets' seconds per audio second on the card."""
+    import os
+    import tempfile
+
+    from wavtokenizer_tpu_torch.metrics import crepe, utmos
+    from wavtokenizer_tpu_torch.utils.audio import resample_np, save_pcm16
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sr, n = spec.sample_rate, 2 * spec.sample_rate
+    audio = np.stack([_speech_like(sr, n, seed) for seed in range(4)])
+    K.reset_launch_counts()
+    wave = model.decode(model.codes_to_features(model.encode_infer(audio)[1]), 0)
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(K)}
+    check(out["launches"] == {"vq_nearest": 1, "convnext_block": spec.backbone.num_layers,
+                              "encoder_front": 1}, f"metrics round trip launches {out['launches']}")
+    # Each decoded clip is written at its reference's RMS, so that the nets
+    # score audio at a speaking level whatever the random decoder's gain.
+    wave = wave.cpu().numpy().astype(np.float64)
+    rms = lambda x: np.sqrt(np.mean(np.square(x), axis=-1))
+    out["gain"] = rms(wave) / rms(audio)
+    check(bool(np.isfinite(wave).all()) and bool((out["gain"] > 0).all()),
+          f"metrics round trip: decoded RMS over the reference's {out['gain']}")
+    wave = (wave / out["gain"][:, None]).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        for sub in ("gt", "pred"):
+            os.makedirs(os.path.join(d, sub))
+        for i in range(len(audio)):
+            save_pcm16(os.path.join(d, "gt", f"clip{i}.wav"), audio[i], sr)
+            save_pcm16(os.path.join(d, "pred", f"clip{i}.wav"), wave[i], sr)
+        crepe_path, utmos_path = os.path.join(d, "crepe.pth"), os.path.join(d, "utmos.ckpt")
+        torch.save({k: torch.from_numpy(v) for k, v in crepe.init_crepe_state_dict(0).items()},
+                   crepe_path)
+        usd = utmos.init_utmos_state_dict(0)
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in usd.items()}}, utmos_path)
+        env = dict(os.environ, WT_CREPE_CKPT=crepe_path, WT_UTMOS_CKPT=utmos_path)
+        results = {}
+        for device in ("cuda", "cpu"):
+            js = os.path.join(d, f"{device}.json")
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "wavtokenizer_tpu_torch.tools.metrics_infer",
+                                  "--gt-dir", os.path.join(d, "gt"), "--pred-dir",
+                                  os.path.join(d, "pred"), "--out", js, "--device", device],
+                                 cwd=root, env=env, capture_output=True, text=True, timeout=900)
+            out[f"cli_{device}_s"] = time.perf_counter() - t0
+            check(res.returncode == 0, f"metrics_infer --device {device} failed:\n{res.stderr}")
+            with open(js) as f:
+                results[device] = json.load(f)
+        got, want = results["cuda"], results["cpu"]
+        check(len(got["files"]) == len(want["files"]) == len(audio),
+              f"metrics_infer: {len(got['files'])} / {len(want['files'])} files")
+        worst = {}
+        for g, w in zip(got["files"], want["files"]):
+            for k in METRICS_NUMPY:
+                check(g[k] == w[k] or (g[k] != g[k] and w[k] != w[k]),
+                      f"metrics_infer {g['file']} {k}: card {g[k]} vs CPU {w[k]}")
+            for k, (kind, lim) in METRICS_LIMITS.items():
+                check(g[k] is not None and w[k] is not None and np.isfinite([g[k], w[k]]).all(),
+                      f"metrics_infer {g['file']} {k}: card {g[k]}, CPU {w[k]}")
+                err = abs(g[k] - w[k]) / (max(abs(w[k]), 1e-12) if kind == "rel" else 1.0)
+                check(err <= lim,
+                      f"metrics_infer {g['file']} {k}: card {g[k]} vs CPU {w[k]} ({kind} {lim})")
+                worst[k] = max(worst.get(k, 0.0), err)
+        out["summary"], out["worst"] = got["summary"], worst
+        out["utmos_files"] = [(g["utmos"], w["utmos"]) for g, w in zip(got["files"],
+                                                                      want["files"])]
+
+        # Seconds per audio second of the two nets on the card, on the
+        # predictions at 16 kHz (CREPE: framing, the net and the viterbi
+        # decode; UTMOS: one batch of the 4 clips).
+        deg16 = np.stack([resample_np(w, sr, 16000) for w in wave])
+        audio_s = deg16.size / 16000
+        cp = crepe.load_crepe(crepe_path, device="cuda")
+        up = utmos.load_utmos(utmos_path, device="cuda")
+        crepe.crepe_predict(cp, deg16[0])
+        utmos.utmos_score_from_params(up, deg16)
+        t0 = time.perf_counter()
+        for x in deg16:
+            crepe.crepe_predict(cp, x)
+        out["crepe_s_per_s"] = (time.perf_counter() - t0) / audio_s
+        frames = np.concatenate([crepe.frame_audio(x) for x in deg16])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sal = crepe.salience(cp, frames)
+        out["crepe_net_s_per_s"] = (time.perf_counter() - t0) / audio_s
+        # The random CREPE's salience is ~0.5 with a small input-dependent
+        # part, and its decoded pitch and voicing barely move with the input:
+        # the card's salience is held to the CPU's relative to that part
+        # (the largest deviation from each bin's mean over the frames).
+        want = crepe.salience(crepe.load_crepe(crepe_path, device="cpu"), frames)
+        out["sal_err"] = float(np.abs(sal - want).max())
+        out["sal_spread"] = float(np.abs(want - want.mean(axis=0)).max())
+        check(out["sal_err"] <= SALIENCE_TOL * out["sal_spread"],
+              f"CREPE salience card vs CPU max abs err {out['sal_err']:.3g} over the "
+              f"input-dependent part {out['sal_spread']:.3g} (limit {SALIENCE_TOL})")
+        t0 = time.perf_counter()
+        utmos.utmos_score_from_params(up, deg16)
+        out["utmos_s_per_s"] = (time.perf_counter() - t0) / audio_s
+        out["audio_s"] = audio_s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -1132,9 +1428,7 @@ def main() -> int:
         cnx_ms = cuda_ms(lambda: K.convnext_block(*bargs), 20)
         cnx_plain = cuda_ms(lambda: K.convnext_block_reference(*bargs[:10]), 20)
         M = TIMING_BATCH * T_frames
-        ops_s = 4 * M * C * I / H100_BF16_FLOPS + 14 * M * C / H100_FP32_FLOPS
-        bytes_s = (2 * M * C * 4 + 2 * C * I * 2 + (13 * C + I) * 4) / H100_BYTES
-        cnx_bound = max(ops_s, bytes_s) * 1e3
+        cnx_bound, cnx_by = convnext_bound(M, C, I)
         # Yardstick only, never called by the port: the two bf16 GEMMs alone
         # through cuBLAS.
         hb = torch.randn(M, C, generator=gen).to(dev, torch.bfloat16)
@@ -1303,6 +1597,48 @@ def main() -> int:
         f"on the card vs the CPU: {tc['card_vs_cpu']} differ (limit {max_flips(tc['n_ids'])}; "
         f"{tc['distinct']} distinct codes); card {card}")
 
+    # -- 13. plain Vocos at the vocos-mel-24khz width ----------------------
+    vc = vocos_phase(K)
+    log(f"[13 vocos] {VOCOS_CONFIG} from init_vocos(seed=0), B=8 x 3 s: launches "
+        f"{vc['launches']}; features card vs CPU rel-max {vc['feat_rel']:.3g} (limit 1e-4); "
+        f"waveform card vs CPU rel-max {vc['wave_rel']:.3g} (limit {VOCOS_WAVE_TOL}); "
+        f"convnext_block on the trunk's own input vs plain: max abs err {vc['cnx_err']:.3g}, "
+        f"over max |out - x| {vc['cnx_rel_update']:.3g} (limit 1e-2)")
+    log(f"[13 vocos] B={TIMING_BATCH} x {TIMING_SECONDS:.0f} s: clips 0-7 of the decode card vs "
+        f"CPU rel-max {vc['wave_rel_t']:.3g} (limit {VOCOS_WAVE_TOL}); convnext_block on this "
+        f"batch's first-block input vs plain: max abs err {vc['cnx_err_t']:.3g}, over max "
+        f"|out - x| {vc['cnx_rel_update_t']:.3g} (limit 1e-2)")
+    log(f"[13 vocos] B={TIMING_BATCH} x {TIMING_SECONDS:.0f} s on {card}: stages ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in vc["stages"].items())
+        + f"; forward {vc['rt_ms']:.3f} ms = {vc['rtf']:.1f}x real time; "
+        f"{vc['launches']['convnext_block']} convnext_block launches a decode; device busy {vc['busy_ms']:.3f} ms, idle share "
+        f"{vc['idle']:.4f}; top: {vc['profile']}")
+    log(f"[13 vocos] convnext_block M={vc['M']} C={vc['C']} I={vc['I']}: kernel "
+        f"{vc['ms']:.4f} ms, plain {vc['plain_ms']:.4f} ms, bound {vc['bound_ms']:.4f} ms "
+        f"({vc['bound_by']}); cuBLAS bf16 GEMM pair alone {vc['gemm_ms']:.4f} ms; card {card}")
+    log("[13 vocos] resnet trunk dim 512, frame 512, B=2 x 3 s, card vs CPU rel-max: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in vc["resnet"].items()) + " (limit 1e-3)")
+
+    # -- 14. metrics CLI on the card against the CPU ----------------------
+    mt = metrics_phase(model, small320, K)
+    log(f"[14 metrics] small-320 round trip of 4 clips x 2 s on the card (launches "
+        f"{mt['launches']}); tools/metrics_infer.py with CREPE full and UTMOS (12 layers) "
+        f"from seeded random state dicts: --device cuda {mt['cli_cuda_s']:.1f} s, --device cpu "
+        f"{mt['cli_cpu_s']:.1f} s (subprocesses); numpy metrics equal; card vs CPU worst "
+        + ", ".join(f"{k} {v:.3g} ({METRICS_LIMITS[k][0]} limit {METRICS_LIMITS[k][1]})"
+                    for k, v in mt["worst"].items()))
+    log(f"[14 metrics] decoded RMS over the reference's (before level matching): "
+        + ", ".join(f"{g:.3g}" for g in mt["gain"]) + "; UTMOS per file card / CPU: "
+        + ", ".join(f"{g:.6g} / {w:.6g}" for g, w in mt["utmos_files"])
+        + f"; CREPE salience card vs CPU max abs err {mt['sal_err']:.3g} over its "
+        f"input-dependent part {mt['sal_spread']:.3g} = {mt['sal_err'] / mt['sal_spread']:.3g} "
+        f"(limit {SALIENCE_TOL})")
+    log(f"[14 metrics] summary (card): " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in mt["summary"].items()))
+    log(f"[14 metrics] on {card}, {mt['audio_s']:.1f} audio s at 16 kHz: CREPE "
+        f"{mt['crepe_s_per_s']:.4f} s per audio s (net alone {mt['crepe_net_s_per_s']:.4f}), "
+        f"UTMOS {mt['utmos_s_per_s']:.4f} s per audio s")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
@@ -1326,7 +1662,12 @@ def main() -> int:
          "replaces": "wavtokenizer_tpu/ops/kernels.py:100",
          "launches": launches["convnext_block"], "max_abs_err": cnx_err, "ms": cnx_ms,
          "plain_ms": cnx_plain, "bound_ms": cnx_bound,
-         "bound_by": "operations" if ops_s > bytes_s else "bytes", "library_ms": None},
+         "bound_by": cnx_by, "library_ms": None,
+         "vocos": {"M": vc["M"], "C": vc["C"], "I": vc["I"], "ms": vc["ms"],
+                   "plain_ms": vc["plain_ms"], "bound_ms": vc["bound_ms"],
+                   "bound_by": vc["bound_by"], "cublas_pair_ms": vc["gemm_ms"],
+                   "max_abs_err": max(vc["cnx_err"], vc["cnx_err_t"]),
+                   "launches_per_decode": vc["launches"]["convnext_block"]}},
         {"name": "encoder_front", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/encoder_front.cu",
          "replaces": "wavtokenizer_tpu/ops/encoder_front.py:371",

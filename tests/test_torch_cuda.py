@@ -378,3 +378,85 @@ def test_train_step_card_matches_cpu(cuda):
     for k in cpu["vq"]:
         want = cpu["vq"][k]
         assert float((card["vq"][k].cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# The plain-Vocos family at the vocos-mel-24khz width (C = 512, I = 1536),
+# plain LayerNorm's weight and bias as the kernel's scale and shift: rows
+# B * T = 564 and 285, neither a multiple of the 128-row tile.
+@pytest.mark.parametrize("B,T", [(2, 282), (3, 95)])
+def test_convnext_block_kernel_at_vocos_width(cuda, B, T):
+    C, I = 512, 1536
+    g = torch.Generator().manual_seed(B * T)
+    f = lambda *s, sc=0.1: (torch.randn(*s, generator=g) * sc).to(cuda)
+    x = f(B, T, C, sc=1.0)
+    args = (x, f(7, C), f(C), 1 + f(C), f(C), f(C, I, sc=0.02).to(torch.bfloat16), f(I),
+            f(I, C, sc=0.02).to(torch.bfloat16), f(C), f(C, sc=0.3))
+    before = K.convnext_block.launches
+    got = K.convnext_block(*args)
+    torch.cuda.synchronize()
+    assert K.convnext_block.launches == before + 1
+    want = K.convnext_block_reference(*args)
+    # Same bf16 operands and fp32 sums; only the summation order differs.
+    assert float((got - want).abs().max() / (want - x).abs().max()) < 1e-2
+
+
+def _vocos_mel_24khz():
+    import os
+
+    from wavtokenizer_tpu_torch.api.config import vocos_spec_from_config
+    return vocos_spec_from_config(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "wavtokenizer_tpu_torch",
+        "configs", "vocos_mel_24khz.yaml"))
+
+
+def test_vocos_decode_launches_the_kernel_per_block(cuda):
+    """A full-width vocos-mel-24khz decode on the card: 8 ConvNeXt-kernel
+    launches (one a block), the waveform within 2e-2 of the CPU's (the
+    same bf16-operand arithmetic in another order, as the codec's decode)."""
+    from wavtokenizer_tpu_torch import Vocos, init_vocos
+    spec = _vocos_mel_24khz()
+    params = init_vocos(spec, seed=0)
+    card, cpu = (Vocos.from_jax_params(params, spec, device=d) for d in (cuda, "cpu"))
+    audio = torch.randn(2, 24000, generator=torch.Generator().manual_seed(0)) * 0.1
+    feats = card.feature_extractor(audio)
+    before = K.convnext_block.launches
+    wave = card.decode(feats)
+    torch.cuda.synchronize()
+    assert K.convnext_block.launches - before == spec.backbone.num_layers == 8
+    want = cpu.decode(feats.cpu())
+    assert wave.shape == want.shape == (2, feats.shape[-1] * 256)
+    assert float((wave.cpu() - want).abs().max() / want.abs().max()) < 2e-2
+
+
+def test_crepe_and_utmos_card_match_cpu(cuda):
+    """CREPE's salience and UTMOS's score on the card against the CPU, from
+    seeded random state dicts, TF32 off (fp32 in other orders).  The random
+    CREPE's salience is ~0.5 with an input-dependent part of ~2e-4, so its
+    error is held to 1e-2 of that part (the largest deviation from each
+    bin's mean over the frames; float32 against float64 reads ~2e-4 of it);
+    UTMOS within rel 1e-4."""
+    from wavtokenizer_tpu_torch.metrics import crepe, utmos
+    sd = crepe.init_crepe_state_dict(seed=0)
+    frames = crepe.frame_audio(np.random.default_rng(0).normal(size=8000).astype(np.float32))
+    got = crepe.salience(crepe.crepe_params_from_torch(sd, cuda), frames)
+    want = crepe.salience(crepe.crepe_params_from_torch(sd, "cpu"), frames)
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want - want.mean(axis=0)).max()
+    sd = utmos.init_utmos_state_dict(seed=0, cfg=utmos.UTMOSConfig(num_layers=2))
+    wav = (np.random.default_rng(1).normal(size=(2, 16000)) * 0.1).astype(np.float32)
+    got = utmos.utmos_score_from_params(utmos.utmos_params_from_torch(sd, cuda), wav)
+    want = utmos.utmos_score_from_params(utmos.utmos_params_from_torch(sd, "cpu"), wav)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,n_fft,hop", [(8, 1024, 256), (2, 1024, 256), (8, 1280, 320)])
+def test_istft_same_card_matches_cpu(cuda, B, n_fft, hop):
+    """The ISTFT of a head's output, whose DC and Nyquist bins carry
+    imaginary parts a real inverse ignores: the card (cuFFT) within 1e-5
+    of the CPU (pocketfft).  Before the port zeroed them, cuFFT used them at
+    (8, 1024): rel-max 3.4e-2."""
+    from wavtokenizer_tpu_torch.ops.spectral import istft_same
+    g = torch.Generator().manual_seed(B + n_fft)
+    re, im = (torch.randn(B, 282, n_fft // 2 + 1, generator=g) for _ in range(2))
+    want = istft_same(re, im, n_fft, hop)
+    got = istft_same(re.to(cuda), im.to(cuda), n_fft, hop).cpu()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5

@@ -13,6 +13,12 @@ Port of ``wavtokenizer_tpu/api/pretrained.py`` (ref decoder/pretrained.py):
     features, codes = wt.encode(audio, n_q=2)     # training-style encode
     audio_hat = wt(audio, bandwidth_id=0)         # copy synthesis
 
+and the plain-Vocos facade (mel features -> trunk -> head):
+
+    vocos = Vocos.from_pretrained(config_path, model_path)  # or
+    vocos = Vocos.from_jax_params(init_vocos(spec), spec)
+    audio_hat = vocos.decode(vocos.feature_extractor(audio))  # = vocos(audio)
+
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 the card the encoder front (layers 0-6), the VQ search and the ConvNeXt
 blocks run in this package's own kernels (``ops/kernels.py``).  Inputs may
@@ -33,15 +39,17 @@ import numpy as np
 import torch
 
 from ..checkpoint.convert import (DISCRIMINATOR_PREFIXES, INFERENCE_PREFIXES,
-                                  average_state_dicts, convert_wavtokenizer_state_dict,
-                                  discriminator_params, load_torch_state_dict)
+                                  average_state_dicts, convert_vocos_state_dict,
+                                  convert_wavtokenizer_state_dict, discriminator_params,
+                                  load_torch_state_dict)
+from ..models import vocos_model
 from ..models import wavtokenizer as wt
 from ..models.seanet import decoder_layer_specs, encoder_layer_specs
 from ..models.wavtokenizer import WavTokenizerSpec
 from ..ops.encoder_front import front_geometry_matches, prepare_front_weights
 from ..ops.kernels import pack_convnext_weights, pack_vq_codebook
 from ..ops.lstm import lstm_from_layers
-from .config import spec_from_config
+from .config import spec_from_config, vocos_spec_from_config
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -421,3 +429,81 @@ class WavTokenizer:
         alone (bypasses Vocos)."""
         features = torch.as_tensor(features_input, dtype=torch.float32).to(self.device)
         return wt.seanet_only_decode(self.params, self.spec, features)
+
+
+def vocos_from_jax_params(params_np: dict, spec, device="cuda") -> dict:
+    """The JAX package's plain-Vocos params (numpy; ``init_vocos`` or
+    ``convert_vocos_state_dict`` output) -> this package's on ``device``:
+    a ConvNeXt trunk as ``backbone_from_jax`` makes it (bf16 matmul weights
+    with the kernel's packs), a ResNet trunk's convs (C_out, C_in, K), the
+    head's Linear (C_in, C_out)."""
+    device = torch.device(device)
+    p = params_np["backbone"]
+    if spec.backbone_kind == "convnext":
+        backbone = backbone_from_jax(p, device)
+    else:
+        backbone = {"embed": _conv(p["embed"], device),
+                    "resnet": [{"convs1": [_conv(c, device) for c in b["convs1"]],
+                                "convs2": [_conv(c, device) for c in b["convs2"]],
+                                "gamma": [None if g is None else _t(g, device)
+                                          for g in b["gamma"]]}
+                               for b in p["resnet"]]}
+    out = params_np["head"]["out"]
+    return {"backbone": backbone,
+            "head": {"out": {"weight": _t(out["weight"], device),
+                             "bias": _t(out["bias"], device)}}}
+
+
+class Vocos:
+    """Plain-Vocos facade (mel features -> trunk -> head) around (params,
+    ``VocosSpec``) on one device: the upstream Vocos mode the reference
+    carries beside WavTokenizer (MelSpectrogramFeatures + VocosBackbone or
+    VocosResNetBackbone + ISTFT or IMDCT heads)."""
+
+    def __init__(self, params: dict, spec, device="cuda"):
+        self.params = params
+        self.spec = spec
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_hparams(cls, config_path: str, device="cuda") -> "Vocos":
+        """The spec of a YAML config, with no params (as the JAX facade's:
+        draw them with ``init_vocos`` and use ``from_jax_params``)."""
+        return cls({}, vocos_spec_from_config(config_path), device)
+
+    @classmethod
+    def from_jax_params(cls, params_np: dict, spec, device="cuda") -> "Vocos":
+        return cls(vocos_from_jax_params(params_np, spec, device), spec, device)
+
+    @classmethod
+    def from_state_dict(cls, state_dict: dict, spec, device="cuda") -> "Vocos":
+        """From a state dict ({key: tensor or ndarray}, keys under backbone. /
+        head.)."""
+        return cls.from_jax_params(convert_vocos_state_dict(state_dict, spec), spec, device)
+
+    @classmethod
+    def from_pretrained(cls, config_path: str, model_path: str, device="cuda") -> "Vocos":
+        """A YAML config and a torch checkpoint of the model."""
+        return cls.from_state_dict(load_torch_state_dict(model_path),
+                                   vocos_spec_from_config(config_path), device)
+
+    def _audio(self, audio) -> torch.Tensor:
+        a = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        return a[None] if a.dim() == 1 else a
+
+    def feature_extractor(self, audio_input) -> torch.Tensor:
+        """(B, T) or (T,) audio -> (B, n_mels, T') log-mel features."""
+        return vocos_model.vocos_features(self.params, self.spec, self._audio(audio_input))
+
+    def decode(self, features_input, bandwidth_id=None) -> torch.Tensor:
+        """(B, C, T') features -> (B, L) waveform.  ``bandwidth_id`` is
+        ignored, as the JAX facade ignores it: the plain-Vocos trunks have
+        no AdaLN."""
+        features = torch.as_tensor(features_input, dtype=torch.float32).to(self.device)
+        return vocos_model.vocos_decode(self.params, self.spec, features)
+
+    def __call__(self, audio_input, bandwidth_id=None) -> torch.Tensor:
+        """Copy synthesis: features, then decode."""
+        return vocos_model.vocos_forward(self.params, self.spec, self._audio(audio_input))
+
+    forward = __call__

@@ -11,7 +11,9 @@ and every tensor re-laid-out channel-last like the JAX package:
 ``api.pretrained.WavTokenizer.from_state_dict`` feeds the result to
 ``from_jax_params``, so weights reach this package by one road.  Values may
 be torch tensors or numpy arrays.  ``convert_encodec_state_dict`` reads a
-pretrained EnCodec model's state dict the same way.
+pretrained EnCodec model's state dict the same way, and
+``convert_vocos_state_dict`` a plain-Vocos model's (the ResNet trunk and the
+IMDCT heads beside the ConvNeXt trunk and the ISTFT head).
 
 The discriminators (``discriminator_params``, for ``from_pretrained0828``
 and the surgical training resume) stay in weight-norm (v, g) form and in
@@ -199,6 +201,35 @@ def vocos_backbone_params(sd: TrackedStateDict, root: str,
 
 def istft_head_params(sd: TrackedStateDict, root: str) -> dict:
     return {"out": linear_params(sd, f"{root}out")}
+
+
+def resnet_backbone_params(sd: TrackedStateDict, root: str, num_blocks: int = 3) -> dict:
+    """VocosResNetBackbone (ref decoder/models.py:238-264): the weight-normed
+    embed conv k3 and ``num_blocks`` ResBlock1s (convs1/convs2 x 3, gamma)."""
+    blocks = [{"convs1": [conv1d_params(sd, f"{root}resnet.{i}.convs1.{j}") for j in range(3)],
+               "convs2": [conv1d_params(sd, f"{root}resnet.{i}.convs2.{j}") for j in range(3)],
+               "gamma": [sd[f"{root}resnet.{i}.gamma.{j}"][:, 0] for j in range(3)]}
+              for i in range(num_blocks)]
+    return {"embed": conv1d_params(sd, f"{root}embed"), "resnet": blocks}
+
+
+def imdct_head_params(sd: TrackedStateDict, root: str) -> dict:
+    """IMDCTSymExpHead / IMDCTCosHead's Linear (ref decoder/heads.py:70-157)."""
+    return {"out": linear_params(sd, f"{root}out")}
+
+
+def convert_vocos_state_dict(sd, spec) -> dict:
+    """A plain-Vocos state dict (keys under backbone. / head.) -> the JAX
+    package's param pytree for ``spec`` (a ``VocosSpec``)."""
+    if not isinstance(sd, TrackedStateDict):
+        sd = TrackedStateDict(sd)
+    if spec.backbone_kind == "convnext":
+        backbone = vocos_backbone_params(sd, "backbone.", spec.backbone)
+    else:
+        backbone = resnet_backbone_params(sd, "backbone.", spec.backbone.num_blocks)
+    head = (istft_head_params(sd, "head.") if spec.head_kind == "istft"
+            else imdct_head_params(sd, "head."))
+    return {"backbone": backbone, "head": head}
 
 
 def convert_wavtokenizer_state_dict(sd, spec: WavTokenizerSpec) -> dict:

@@ -244,3 +244,34 @@ def init_encodec(cfg, seed: int = 0) -> dict:
             for conv in convs:
                 conv["gn"] = _norm_ones(conv["kernel"].shape[-1])
     return params
+
+
+def init_vocos(spec, seed: int = 0) -> dict:
+    """Seeded random params of the plain-Vocos family
+    (``models/vocos_model.py::VocosSpec``), in the JAX package's layout: the
+    same draws as ``wavtokenizer_tpu/models/init.py::init_vocos``.
+    ``api/pretrained.py::Vocos.from_jax_params`` turns them into tensors."""
+    from .alt_components import mel_scaled_head_init_scale
+
+    rng = np.random.default_rng(seed)
+    if spec.backbone_kind == "convnext":
+        backbone = init_backbone(rng, spec.backbone)
+    else:
+        cfg = spec.backbone
+        blocks = [{"convs1": [_conv_default(rng, 3, cfg.dim, cfg.dim) for _ in range(3)],
+                   "convs2": [_conv_default(rng, 3, cfg.dim, cfg.dim) for _ in range(3)],
+                   "gamma": [np.full((cfg.dim,), 1.0 / cfg.num_blocks, np.float32)
+                             for _ in range(3)]}
+                  for _ in range(cfg.num_blocks)]
+        backbone = {"embed": _conv_default(rng, 3, cfg.input_channels, cfg.dim),
+                    "resnet": blocks}
+    if spec.head_kind == "istft":
+        head = {"out": _linear_trunc(rng, spec.head.dim, spec.head.n_fft + 2)}
+    elif spec.head_kind == "imdct_symexp":
+        out = _linear_trunc(rng, spec.head.dim, spec.head.mdct_frame_len // 2)
+        scale = mel_scaled_head_init_scale(spec.sample_rate, spec.head.mdct_frame_len // 2)
+        out["weight"] = out["weight"] * scale[None, :]
+        head = {"out": out}
+    else:  # imdct_cos
+        head = {"out": _linear_trunc(rng, spec.head.dim, spec.head.mdct_frame_len)}
+    return {"backbone": backbone, "head": head}

@@ -130,15 +130,13 @@ def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None,
     return x + h
 
 
-def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
-                   bandwidth_id: int | None = None, fused: bool = True,
-                   dropout_generator: torch.Generator | None = None,
-                   dropout_rate: float = 0.0) -> torch.Tensor:
-    """x (B, T, input_channels) -> (B, T, dim) (ref decoder/models.py:223-235):
-    embed conv -> pos-net (2 resblocks, attention, 2 resblocks, GroupNorm) ->
-    (Ada)LN -> ConvNeXt stack -> final LayerNorm.  ``fused`` as in
-    ``convnext_block``; ``dropout_generator``/``dropout_rate`` turn on the
-    pos-net resblocks' training dropout (``pos_resnet_block``)."""
+def backbone_stem(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
+                  bandwidth_id: int | None = None,
+                  dropout_generator: torch.Generator | None = None,
+                  dropout_rate: float = 0.0) -> torch.Tensor:
+    """The backbone up to its ConvNeXt stack: embed conv -> pos-net (2
+    resblocks, attention, 2 resblocks, GroupNorm) -> (Ada)LN; the first
+    block's input."""
     g = cfg.groupnorm_groups
 
     def res(p, x):
@@ -158,6 +156,18 @@ def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
         x = ada_layer_norm(params["norm"], x, bandwidth_id)
     else:
         x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"])
+    return x
+
+
+def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
+                   bandwidth_id: int | None = None, fused: bool = True,
+                   dropout_generator: torch.Generator | None = None,
+                   dropout_rate: float = 0.0) -> torch.Tensor:
+    """x (B, T, input_channels) -> (B, T, dim) (ref decoder/models.py:223-235):
+    ``backbone_stem`` -> ConvNeXt stack -> final LayerNorm.  ``fused`` as in
+    ``convnext_block``; ``dropout_generator``/``dropout_rate`` turn on the
+    pos-net resblocks' training dropout (``pos_resnet_block``)."""
+    x = backbone_stem(params, cfg, x, bandwidth_id, dropout_generator, dropout_rate)
     for block in params["convnext"]:
         x = convnext_block(block, x, cond_id=bandwidth_id, fused=fused)
     return layer_norm(x, params["final_layer_norm"]["weight"],

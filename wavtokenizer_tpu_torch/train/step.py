@@ -33,10 +33,8 @@ keys, so the two packages agree only where the draws do not matter or are
 passed in: a given ``bandwidth_id``, an inited codebook, no dropout.
 
 Left out of ``TrainConfig``, with what they select: remat
-(``remat``/``remat_encoder``/``remat_disc``), the bf16 compute dtypes
-(``disc_compute_dtype``/``gen_compute_dtype``) and the validation
-evaluators (``evaluate_*``: the metrics are not ported, so validation
-scores them 0, as the JAX package does when an evaluator is unavailable).
+(``remat``/``remat_encoder``/``remat_disc``) and the bf16 compute dtypes
+(``disc_compute_dtype``/``gen_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -76,6 +74,13 @@ class TrainConfig:
     # Training-time dropout inside the backbone pos-net resblocks (the
     # reference trains with 0.1, decoder/models.py:200).
     pos_dropout: float = 0.1
+    # Validation's objective evaluators (ref configs/*.yaml model.init_args
+    # evaluate_utmos/evaluate_pesq/evaluate_periodicty): one that is off, or
+    # has no checkpoint (UTMOS), scores 0, so its (5 - score) val_loss term
+    # is the constant 5 (train/trainer.py::Trainer._host_val_metrics).
+    evaluate_utmos: bool = True
+    evaluate_pesq: bool = True
+    evaluate_periodicity: bool = True
     # Discriminator hidden-width multiplier: 1.0 is the reference's widths;
     # tests and smoke runs shrink it and keep every family, period,
     # resolution and band.

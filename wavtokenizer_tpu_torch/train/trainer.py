@@ -9,12 +9,13 @@ val_loss = mel + (5 - utmos) + (5 - pesq) + 1000 * commit
 stand-in) and TensorBoard media when tensorboard is installed.
 
 On one device (``cuda`` unless the caller asks for the CPU); the JAX
-package's data-parallel mesh is not ported.  The objective evaluators
-(UTMOS, PESQ, periodicity, STOI) are not ported either: validation scores
-UTMOS and PESQ 0, so their val_loss terms are the constant 5, as in the JAX
-package when an evaluator is unavailable.  Checkpoints are ``torch.save``
-files of the whole state (params, VQ state, decoder, both optimizers and
-schedules, step).
+package's data-parallel mesh is not ported.  Validation scores the
+reconstructions with the objective evaluators of ``metrics/`` on 16 kHz
+audio, as the JAX package does: periodicity, pitch and voicing (NAC, or
+CREPE with ``WT_CREPE_CKPT``), UTMOS (with ``WT_UTMOS_CKPT``, else 0), PESQ
+(the ``pesq`` package or the native P.862) and STOI.  Checkpoints are
+``torch.save`` files of the whole state (params, VQ state, decoder, both
+optimizers and schedules, step).
 """
 
 from __future__ import annotations
@@ -42,10 +43,10 @@ def train_config_from_yaml(config: dict) -> tuple:
     """A reference-style Lightning YAML (parsed) -> (spec, tcfg, train data,
     val data).
 
-    The evaluate_* keys are read by nothing: the evaluators are not ported,
-    so validation scores UTMOS and PESQ 0 whatever they say.  The JAX
-    package's ``disc_compute_dtype`` is not ported either, and a YAML that
-    sets it to anything but float32 is refused.  ``num_workers`` is not
+    The evaluate_* keys switch validation's evaluators, the reference's
+    misspelt ``evaluate_periodicty`` first.  The JAX package's
+    ``disc_compute_dtype`` is not ported, and a YAML that sets it to anything
+    but float32 is refused.  ``num_workers`` is not
     read: the loader is one process and yields the same batches."""
     spec = spec_from_config_dict(config)
     init = config.get("model", {}).get("init_args", {})
@@ -64,7 +65,12 @@ def train_config_from_yaml(config: dict) -> tuple:
         decay_mel_coeff=bool(init.get("decay_mel_coeff", False)),
         max_steps=int(trainer.get("max_steps", 2_000_000)),
         num_bandwidths=len(init.get("feature_extractor", {}).get("init_args", {})
-                           .get("bandwidths", [1, 1, 1, 1])))
+                           .get("bandwidths", [1, 1, 1, 1])),
+        evaluate_utmos=bool(init.get("evaluate_utmos", True)),
+        evaluate_pesq=bool(init.get("evaluate_pesq", True)),
+        # the reference YAML key keeps the upstream typo "periodicty"
+        evaluate_periodicity=bool(init.get("evaluate_periodicty",
+                                           init.get("evaluate_periodicity", True))))
 
     def data_cfg(block):
         if not block:
@@ -189,15 +195,56 @@ class Trainer:
 
     # ------------------------------------------------------------------ val
 
+    def _host_val_metrics(self, audio: np.ndarray, audio_hat: np.ndarray) -> dict:
+        """The objective metrics of one validation batch, on audio resampled
+        to 16 kHz as the reference scores it (experiment.py:231-256):
+        periodicity RMSE, pitch RMSE (cents) and voiced F1, UTMOS and PESQ,
+        and STOI besides (logged, not in val_loss).
+
+        UTMOS needs a local checkpoint (``WT_UTMOS_CKPT``); PESQ is the
+        ``pesq`` package when installed, else the native P.862.  An evaluator
+        that is off or unavailable scores 0, so its (5 - score) val_loss term
+        is a constant, as in the reference with evaluate_* off.  CREPE and
+        UTMOS run on this trainer's device."""
+        from ..metrics.objective import pesq_wb, stoi, utmos_score
+        from ..metrics.periodicity import calculate_periodicity_metrics
+        from ..utils.audio import resample_np
+
+        sr = self.spec.sample_rate
+        ref16 = np.stack([resample_np(a.astype(np.float32), sr, 16000) for a in audio])
+        deg16 = np.stack([resample_np(a.astype(np.float32), sr, 16000) for a in audio_hat])
+        out = {"utmos_score": 0.0, "pesq_score": 0.0, "periodicity_loss": 0.0,
+               "pitch_loss": 0.0, "f1_score": 0.0, "stoi": 0.0}
+
+        if self.tcfg.evaluate_periodicity:
+            use_crepe = bool(os.environ.get("WT_CREPE_CKPT"))
+            per = [calculate_periodicity_metrics(r, d, use_crepe=use_crepe, device=self.device)
+                   for r, d in zip(ref16, deg16)]
+            for k, col in zip(("periodicity_loss", "pitch_loss", "f1_score"), zip(*per)):
+                out[k] = float(np.nanmean(col))
+
+        if self.tcfg.evaluate_utmos:
+            scores = utmos_score(deg16, device=self.device)
+            if scores is not None:
+                out["utmos_score"] = float(np.mean(scores))
+
+        if self.tcfg.evaluate_pesq:
+            scores = [pesq_wb(r, d, 16000) for r, d in zip(ref16, deg16)]
+            if all(s is not None for s in scores):
+                out["pesq_score"] = float(np.mean(scores))
+
+        out["stoi"] = float(np.nanmean([stoi(r, d, 16000) for r, d in zip(ref16, deg16)]))
+        return out
+
     def validate(self, state: dict, val_iter, step: int) -> float:
-        """val_loss = mel + (5 - 0) + (5 - 0) + 1000 * commit over up to
-        ``limit_val_batches`` batches (ref experiment.py:257-258, the
-        evaluators' scores 0), and, when TensorBoard logs, the first
-        batch's audio and mel images and the EnCodec-style resynthesis
-        through the carried SEANet decoder (ref experiment.py:272-294,
-        464-474)."""
+        """val_loss = mel + (5 - utmos) + (5 - pesq) + 1000 * commit over up
+        to ``limit_val_batches`` batches (ref experiment.py:257-258), with
+        each batch's objective metrics (``_host_val_metrics``) logged as
+        ``val_*``, and, when TensorBoard logs, the first batch's audio and mel
+        images and the EnCodec-style resynthesis through the carried SEANet
+        decoder (ref experiment.py:272-294, 464-474)."""
         spec = self.spec
-        losses, mel_losses = [], []
+        losses, mel_losses, batch_metrics = [], [], []
         g = step_generator(self.seed + 1, step)
         with torch.no_grad():
             for i in range(self.limit_val_batches):
@@ -208,8 +255,11 @@ class Trainer:
                 audio_hat, commit, _ = generator_forward(state["gen"], state["vq"], spec,
                                                          audio, 0, n_q=1, generator=g)
                 m = float(mel_loss(audio_hat, audio, spec.sample_rate))
+                bm = self._host_val_metrics(audio.cpu().numpy(), audio_hat.cpu().numpy())
+                batch_metrics.append(bm)
                 mel_losses.append(m)
-                losses.append(m + 5.0 + 5.0 + 1000.0 * float(commit))
+                losses.append(m + (5.0 - bm["utmos_score"]) + (5.0 - bm["pesq_score"])
+                              + 1000.0 * float(commit))
                 if i == 0 and self.tb.enabled:
                     sr = spec.sample_rate
                     self.tb.audio_and_spectrogram("val/reconstructed",
@@ -220,6 +270,8 @@ class Trainer:
         val_loss = float(np.mean(losses)) if losses else float("inf")
         rec = {"step": step, "val_loss": val_loss,
                "val_mel_loss": float(np.mean(mel_losses)) if mel_losses else float("inf")}
+        for k in (batch_metrics[0] if batch_metrics else ()):
+            rec[f"val_{k}"] = float(np.nanmean([bm[k] for bm in batch_metrics]))
         self.log(rec)
         self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
         self.tb.flush()
