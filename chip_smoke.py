@@ -44,6 +44,15 @@ round trip writes 4 clips, and tools/metrics_infer.py scores them as a
 subprocess on the card and on the CPU, with CREPE and UTMOS read from
 seeded random state dicts in the reference layouts.
 
+Then the research layer ([15]) at small-320 width: enhanced_forward (frozen
+encoder through the front kernel -> adapter -> SEANet decoder) at 8 x 72 000
+card against CPU with one front launch each, the kernel against its plain
+version on that batch and timed there; one enhance_step in each of the four
+modes card against CPU (two front launches a step in feature and hybrid);
+the waveform step, enhance_infer's forward and a BYOL step timed; device
+resampling against the host resampler at 16 x 10 s; and the enhancement,
+BYOL and low-pass CLIs as subprocesses on the card.
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -369,6 +378,19 @@ def long_audio_phase(model, spec, K) -> dict:
     check(max(rels) < SAME_CARD_WAVE_TOL, f"long audio rel-max errs {rels}")
     return {"seconds": seconds, "wall_s": wall, "rtf": sum(seconds) / wall, "rels": rels,
             "launches": launches}
+
+
+def front_bound_of(S: int, pack: dict) -> tuple:
+    """(least ms, "operations" or "bytes") of the encoder front over S audio
+    samples: the CUDA cores and the tensor cores can run at once, so the
+    operations' time is the larger of the two units' times; the bytes are the
+    audio read once, the (S/8, 128) output written once and the weight pack
+    read once."""
+    ops_s = max(2 * FRONT_FP32_MACS_PER_SAMPLE * S / H100_FP32_FLOPS,
+                3 * 2 * FRONT_TF32_MACS_PER_SAMPLE * S / H100_TF32_FLOPS)
+    n_weights = sum(t.numel() for t in pack.values())
+    bytes_s = (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / H100_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
 
 
 def vq_bound_of(N: int, C: int, D: int) -> tuple:
@@ -1199,6 +1221,315 @@ def metrics_phase(model, spec, K) -> dict:
     return out
 
 
+# [15]: the research layer at small-320 width.  The enhancement batch of
+# tools/enhance_train.py (8 x 3 s) and BYOL's (16 x 64 frames).
+ENHANCE_B, ENHANCE_T = 8, 72000
+ENHANCE_MODES = ("waveform", "feature", "hybrid", "byol")
+# Card against CPU on enhanced_forward: fp32 on both sides (TF32 off).  The
+# CPU's own enhanced features move by ~2e-5 of their max under a 1e-7
+# relative change of the input when BatchNorm uses batch statistics (the
+# random encoder's channels vary little around large offsets).
+ENHANCE_FEATURE_TOL = 1e-4
+ENHANCE_WAVE_TOL = 1e-3
+RESAMPLE_RATES = (44100, 16000, 48000)
+
+
+def _enhance_state(params_np, spec, mode: str, dev: str) -> dict:
+    """A fresh enhancement state on ``dev`` from seed 0: the base model, the
+    adapter and BN state, the in-path transformer in byol mode, and Adam."""
+    from wavtokenizer_tpu_torch.checkpoint.convert import (adapter_from_jax,
+                                                           inpath_transformer_from_jax)
+    from wavtokenizer_tpu_torch.research import enhance as E
+    from wavtokenizer_tpu_torch.research.adapter import (base_params_from_jax, init_adapter,
+                                                         init_inpath_transformer)
+
+    base = base_params_from_jax(params_np, spec.seanet, dev)
+    ap, st = adapter_from_jax(*init_adapter(seed=0), dev)
+    tr = (inpath_transformer_from_jax(init_inpath_transformer(seed=0), dev)
+          if mode == "byol" else None)
+    ecfg = E.EnhanceConfig(mode=mode)
+    opt = E.make_enhance_optimizer(ap, base["decoder"], ecfg, tr)
+    return {"base": base, "ap": ap, "st": st, "tr": tr, "ecfg": ecfg, "opt": opt}
+
+
+def _enhance_step(s: dict, spec, noisy, clean) -> tuple:
+    from wavtokenizer_tpu_torch.research import enhance as E
+    s["st"], loss, g_norm = E.enhance_step(s["opt"], s["ap"], s["st"], s["base"]["decoder"],
+                                           s["base"], noisy, clean, spec, s["ecfg"], s["tr"])
+    return loss, g_norm
+
+
+def research_phase(K) -> dict:
+    """Phase 15: the research layer on the card at small-320 width, random
+    weights from ``init_wavtokenizer(seed=0, random_codebook=True)`` and the
+    research configs' defaults (adapter 512 -> 256 with two blocks; in-path
+    transformer 512, 4 heads, 2 layers, FFN 2048; BYOL 512 -> 512, out 256,
+    projection 128).
+
+    (a) ``enhanced_forward`` at 8 x 72 000 (train False and True), card
+    against CPU, one ``encoder_front`` launch each; the kernel against its
+    plain version on this batch's audio, and timed at that shape.  (b) one
+    ``enhance_step`` in each mode from one state (2 x 1 s), card against
+    CPU; launches per step.  (c) the waveform-mode step at 8 x 3 s timed,
+    with its profile, ``tools/enhance_infer.py``'s forward at that batch and
+    one BYOL step at 16 x 64 frames.  (d) ``resample`` against the host
+    ``resample_np`` at 16 x 10 s.  (e) the CLIs as subprocesses with
+    ``--device cuda``: enhance_train -> enhance_infer, byol_train on encoder
+    features -> enhance_train --mode byol --byol-ckpt, and lowpass.
+    ``tools/speaker_cluster.py`` and ``tools/analyze_features.py`` need
+    sklearn (k-means, t-SNE), which the card machine lacks: they are left
+    out here; their device halves (``seanet_encode``, ``encode_infer`` and
+    ``decode``) run in this phase and in [5]."""
+    import os
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from wavtokenizer_tpu_torch import WavTokenizerSpec, init_wavtokenizer
+    from wavtokenizer_tpu_torch.checkpoint.convert import adapter_from_jax, byol_from_jax
+    from wavtokenizer_tpu_torch.models.seanet import encoder_layer_specs
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.ops.resample import resample
+    from wavtokenizer_tpu_torch.research.adapter import (base_params_from_jax,
+                                                         enhanced_forward, frozen_encode,
+                                                         init_adapter)
+    from wavtokenizer_tpu_torch.research.byol import BYOLConfig, init_byol
+    from wavtokenizer_tpu_torch.tools.byol_train import byol_step
+    from wavtokenizer_tpu_torch.tools.lowpass import energy_above
+    from wavtokenizer_tpu_torch.train.step import tree_leaves
+    from wavtokenizer_tpu_torch.utils.audio import read_audio, resample_np
+
+    spec = WavTokenizerSpec()
+    sr = spec.sample_rate
+    params_np = init_wavtokenizer(spec, seed=0, random_codebook=True)
+    out = {"B": ENHANCE_B, "T": ENHANCE_T}
+    rng = np.random.default_rng(20)
+    speech = np.stack([_speech_like(sr, ENHANCE_T, 20 + i) for i in range(ENHANCE_B)])
+    noisy_np = (speech + 0.05 * rng.normal(size=speech.shape)).astype(np.float32)
+    clean_np = speech.astype(np.float32)
+
+    # (a) the forward, card against CPU.
+    devices = {"cpu": "cpu", "card": "cuda"}
+    base = {k: base_params_from_jax(params_np, spec.seanet, dev) for k, dev in devices.items()}
+    adapter_np = init_adapter(seed=0)
+    out["fwd"] = {}
+    for train in (False, True):
+        res = {}
+        for k, dev in devices.items():
+            ap, st = adapter_from_jax(*adapter_np, dev)
+            K.reset_launch_counts()
+            with torch.no_grad():
+                res[k] = enhanced_forward(base[k], spec.seanet, ap, st,
+                                          torch.from_numpy(noisy_np).to(dev), train=train)
+            if k == "card":
+                torch.cuda.synchronize()
+                launches = K.encoder_front.launches
+        card, cpu = res["card"], res["cpu"]
+        r = {"launches": launches, "wave": rel_max(card[0].cpu(), cpu[0]),
+             "enhanced": rel_max(card[1].cpu(), cpu[1]), "features": rel_max(card[2].cpu(), cpu[2])}
+        if train:
+            r["state"] = max(rel_max(a.cpu(), b) for a, b in zip(
+                tree_leaves(card[3]), tree_leaves(cpu[3]), strict=True))
+        check(launches == 1, f"enhanced_forward train={train}: encoder_front launched {launches}")
+        check(bool(torch.isfinite(card[0]).all()) and tuple(card[0].shape) == noisy_np.shape,
+              f"enhanced_forward train={train}: waveform {tuple(card[0].shape)} or non-finite")
+        check(max(r["enhanced"], r["features"], r.get("state", 0.0)) <= ENHANCE_FEATURE_TOL
+              and r["wave"] <= ENHANCE_WAVE_TOL,
+              f"enhanced_forward train={train} card vs CPU: {r}")
+        out["fwd"][train] = r
+    del res, card, cpu
+
+    # The kernel on this batch's own audio, against its plain version, and
+    # its time at this shape.
+    enc_p, enc_specs = base["card"]["encoder"], encoder_layer_specs(spec.seanet)
+    a3 = torch.from_numpy(noisy_np).cuda()[:, :, None]
+    with torch.no_grad(), full_fp32():
+        got = K.encoder_front(a3, enc_p, enc_specs)
+        want = K.encoder_front_reference(a3, enc_p, enc_specs)
+        torch.cuda.synchronize()
+        out["front_err"] = float((got - want).abs().max())
+        out["front_rel"] = out["front_err"] / float(want.abs().max())
+        check(out["front_rel"] < 1e-5, f"encoder_front at 8 x 72000: rel err {out['front_rel']:.3g}")
+        out["front_ms"] = cuda_ms(lambda: K.encoder_front(a3, enc_p, enc_specs), 10)
+        out["front_plain_ms"] = cuda_ms(lambda: K.encoder_front_reference(a3, enc_p, enc_specs), 10)
+    out["front_bound_ms"], out["front_bound_by"] = front_bound_of(a3.numel(), enc_p[0]["front"])
+    del got, want, base
+
+    # (b) one step of each mode, card against CPU from one state; the CPU's
+    # own change under a 1e-7 relative change of the noisy input beside it.
+    sn, sc = noisy_np[:2, :24000], clean_np[:2, :24000]
+    bumped = (sn * (1 + 1e-7 * rng.normal(size=sn.shape))).astype(np.float32)
+    out["steps"] = {}
+    for mode in ENHANCE_MODES:
+        m = {}
+        for k, dev, x in (("cpu", "cpu", sn), ("card", "cuda", sn), ("cpu+1e-7", "cpu", bumped)):
+            s = _enhance_state(params_np, spec, mode, dev)
+            K.reset_launch_counts()
+            loss, g_norm = _enhance_step(s, spec, torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(sc).to(dev))
+            m[k] = (float(loss), float(g_norm))
+            if k == "card":
+                m["launches"] = K.encoder_front.launches
+        r = {"launches": m["launches"], "loss": m["card"][0],
+             "loss_rel": rel_err(m["card"][0], m["cpu"][0]),
+             "grad_norm_rel": rel_err(m["card"][1], m["cpu"][1]),
+             "cpu_self_grad_norm_rel": rel_err(m["cpu+1e-7"][1], m["cpu"][1])}
+        want_launches = 2 if mode in ("feature", "hybrid") else 1
+        check(r["launches"] == want_launches,
+              f"enhance_step {mode}: encoder_front launched {r['launches']}, expected {want_launches}")
+        check(np.isfinite(m["card"]).all(), f"enhance_step {mode}: non-finite {m['card']}")
+        check(r["loss_rel"] <= 1e-3, f"enhance_step {mode} card vs CPU loss rel {r['loss_rel']:.3g}")
+        # The gradient norm is held to 1e-3, or, where the CPU alone moves by
+        # more than a quarter of that for a 1e-7 change of its input (the
+        # phase term's 1/|X| weighting at the random decoder's near-null
+        # bins), to 4 times the CPU's own change.
+        r["grad_norm_limit"] = max(1e-3, 4 * r["cpu_self_grad_norm_rel"])
+        check(r["grad_norm_rel"] <= r["grad_norm_limit"],
+              f"enhance_step {mode} card vs CPU grad norm rel {r['grad_norm_rel']:.3g} (limit "
+              f"{r['grad_norm_limit']:.3g})")
+        out["steps"][mode] = r
+
+    # (c) timing: the waveform step at 8 x 3 s.
+    noisy, clean = torch.from_numpy(noisy_np).cuda(), torch.from_numpy(clean_np).cuda()
+    s = _enhance_state(params_np, spec, "waveform", "cuda")
+    for _ in range(2):
+        _enhance_step(s, spec, noisy, clean)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    n_steps = 10
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        loss, _ = _enhance_step(s, spec, noisy, clean)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / n_steps
+    out["step_launches"] = K.encoder_front.launches / n_steps
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step_loss"] = float(loss)
+    check(np.isfinite(out["step_loss"]), "timed enhancement steps: non-finite loss")
+    split, out["idle"] = traced(lambda: _enhance_step(s, spec, noisy, clean))
+    out["busy_ms"] = sum(ms for ms, _ in split.values())
+    out["ops"] = sum(n for _, n in split.values())
+    front = [(ms, n) for name, (ms, n) in split.items() if "front_kernel" in name]
+    out["front_in_trace"] = (sum(ms for ms, _ in front), sum(n for _, n in front))
+    out["profile"] = kernel_lines(split, 10)
+    with torch.no_grad():
+        out["infer_ms"] = cuda_ms(lambda: enhanced_forward(
+            s["base"], spec.seanet, s["ap"], s["st"], noisy, train=False, feature_scale=1.5), 5)
+    del s
+    torch.cuda.empty_cache()
+    bcfg = BYOLConfig()
+    bp = byol_from_jax(init_byol(bcfg, seed=0), "cuda")
+    online = tree_leaves(bp["online"])
+    for t in online:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(online, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+    v1, v2 = (torch.from_numpy(rng.normal(size=(16, 64, 512)).astype(np.float32)).cuda()
+              for _ in range(2))
+    for _ in range(2):
+        byol_step(bp, opt, v1, v2, bcfg, bcfg.tau)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        bl = byol_step(bp, opt, v1, v2, bcfg, bcfg.tau)
+    torch.cuda.synchronize()
+    out["byol_ms"] = (time.perf_counter() - t0) * 1e3 / n_steps
+    out["byol_loss"] = float(bl)
+    check(np.isfinite(out["byol_loss"]), "BYOL step: non-finite loss")
+    del bp, opt, online
+
+    # (d) resampling to 24 kHz at 16 x 10 s.
+    out["resample"] = {}
+    for orig in RESAMPLE_RATES:
+        x = rng.normal(size=(16, 10 * orig)).astype(np.float32) * 0.3
+        xc = torch.from_numpy(x).cuda()
+        got = resample(xc, orig, sr).cpu().numpy()
+        want = np.stack([resample_np(row, orig, sr) for row in x])
+        err = float(np.abs(got - want).max())
+        check(got.shape == want.shape and err <= 1e-5,
+              f"resample {orig} -> {sr}: shape {got.shape}, max abs err {err:.3g}")
+        out["resample"][orig] = {"err": err, "ms": cuda_ms(lambda: resample(xc, orig, sr), 10)}
+    del xc
+
+    # (e) the CLIs as subprocesses on the card, in two waves of concurrent
+    # processes (the second needs the first's checkpoints).
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def clis(runs: dict) -> dict:
+        """{name: (tool, args)} -> {name: stdout}, all started together."""
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"wavtokenizer_tpu_torch.tools.{tool}", *args,
+             "--device", "cuda"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for name, (tool, args) in runs.items()}
+        results = {}
+        try:
+            for name, proc in procs.items():
+                results[name] = proc.communicate(timeout=600) + (proc.returncode,)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        out.setdefault("cli_waves_s", []).append(time.perf_counter() - t0)
+        for name, (_, stderr, rc) in results.items():
+            check(rc == 0, f"{name} failed:\n{stderr[-3000:]}")
+        return {name: r[0] for name, r in results.items()}
+
+    with tempfile.TemporaryDirectory() as d:
+        w = lambda path, y: wavfile.write(path, sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        pairs = []
+        for i in range(2):
+            paths = (os.path.join(d, f"noisy{i}.wav"), os.path.join(d, f"clean{i}.wav"))
+            w(paths[0], noisy_np[i])
+            w(paths[1], clean_np[i])
+            pairs.append("|".join(paths))
+        pairs_file = os.path.join(d, "pairs.txt")
+        with open(pairs_file, "w") as f:
+            f.write("\n".join(pairs) + "\n")
+        long_in, long_out = os.path.join(d, "long"), os.path.join(d, "long_out")
+        os.makedirs(long_in)
+        for i in range(2):
+            w(os.path.join(long_in, f"l{i}.wav"), 0.5 * _speech_like(sr, 7 * sr, 30 + i)
+              + 0.02 * rng.normal(size=7 * sr))
+        feats = os.path.join(d, "feats")
+        os.makedirs(feats)
+        enc = base_params_from_jax(params_np, spec.seanet, "cuda")["encoder"]
+        f = frozen_encode(enc, spec.seanet, noisy)
+        for i in range(ENHANCE_B):
+            np.save(os.path.join(feats, f"f{i}.npy"), f[i].T.cpu().numpy())   # (D, T)
+        del enc, f
+        run, byol_dir, lp_out = (os.path.join(d, n) for n in ("enhance", "byol", "lowpassed"))
+        clis({"enhance_train": ("enhance_train", ["--pairs-file", pairs_file, "--steps", "3",
+                                                  "--batch-size", "2", "--out-dir", run]),
+              "byol_train": ("byol_train", ["--features-dir", feats, "--steps", "5",
+                                            "--out-dir", byol_dir]),
+              "lowpass": ("lowpass", ["--input-dir", long_in, "--output-dir", lp_out,
+                                      "--cutoff", "4000"])})
+        stdout = clis({
+            "enhance_infer": ("enhance_infer", ["--input-dir", long_in, "--output-dir", long_out,
+                                                "--adapter-ckpt", os.path.join(run, "last.pt")]),
+            "enhance_train --mode byol": ("enhance_train", [
+                "--pairs-file", pairs_file, "--mode", "byol", "--byol-ckpt",
+                os.path.join(byol_dir, "byol_model.pt"), "--steps", "1", "--batch-size", "2",
+                "--out-dir", os.path.join(d, "eb")])})["enhance_train --mode byol"]
+        for i in range(2):
+            y = read_audio(os.path.join(long_out, f"l{i}.wav"))[0]
+            check(y.shape == (7 * sr,) and np.isfinite(y).all() and np.abs(y).max() > 0,
+                  f"enhance_infer output {i}: shape {y.shape}")
+        out["byol_leaves"] = stdout.split("byol ckpt: ")[1].split()[0] if "byol ckpt: " in stdout \
+            else None
+        check(out["byol_leaves"] == "32", f"--byol-ckpt loaded {out['byol_leaves']} leaves")
+        out["lowpass"] = []
+        for i in range(2):
+            x = read_audio(os.path.join(long_in, f"l{i}.wav"))[0]
+            y = read_audio(os.path.join(lp_out, f"l{i}.wav"))[0]
+            out["lowpass"].append(energy_above(y, x, sr, 4000.0))
+        check(max(out["lowpass"]) < 1e-3,
+              f"lowpass: energy above the cutoff over the input's {out['lowpass']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -1440,16 +1771,9 @@ def main() -> int:
             front_ms = cuda_ms(lambda: K.encoder_front(a3, enc_p, enc_specs), 5)
             front_plain = cuda_ms(lambda: K.encoder_front_reference(a3, enc_p, enc_specs), 5)
         S = audio.numel()
-        # The CUDA cores and the tensor cores can run at once: the least
-        # time is the larger of the two units' times.
-        front_ops_s = max(2 * FRONT_FP32_MACS_PER_SAMPLE * S / H100_FP32_FLOPS,
-                          3 * 2 * FRONT_TF32_MACS_PER_SAMPLE * S / H100_TF32_FLOPS)
         front_fp32_only = 2 * (FRONT_FP32_MACS_PER_SAMPLE + FRONT_TF32_MACS_PER_SAMPLE) \
             * S / H100_FP32_FLOPS * 1e3
-        n_weights = sum(t.numel() for t in enc_p[0]["front"].values())
-        front_bytes_s = (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / H100_BYTES
-        front_bound = max(front_ops_s, front_bytes_s) * 1e3
-        front_by = "operations" if front_ops_s > front_bytes_s else "bytes"
+        front_bound, front_by = front_bound_of(S, enc_p[0]["front"])
     log(f"[6 timing] encoder_front B={TIMING_BATCH} x {audio.shape[1]}: kernel "
         f"{front_ms:.3f} ms, plain {front_plain:.3f} ms, bound {front_bound:.3f} ms "
         f"({front_by}; {front_fp32_only:.3f} ms were every product an fp32 FMA); "
@@ -1639,6 +1963,48 @@ def main() -> int:
         f"{mt['crepe_s_per_s']:.4f} s per audio s (net alone {mt['crepe_net_s_per_s']:.4f}), "
         f"UTMOS {mt['utmos_s_per_s']:.4f} s per audio s")
 
+    # -- 15. the research layer -------------------------------------------
+    rs = research_phase(K)
+    audio_s = rs["B"] * rs["T"] / small320.sample_rate
+    for train, r in rs["fwd"].items():
+        log(f"[15 research] (a) enhanced_forward B={rs['B']} x {rs['T']} train={train}: "
+            f"encoder_front launches {r['launches']}; card vs CPU rel-max: enhanced features "
+            f"{r['enhanced']:.3g}, input features {r['features']:.3g}"
+            + (f", BN running state {r['state']:.3g}" if "state" in r else "")
+            + f" (limit {ENHANCE_FEATURE_TOL}), waveform {r['wave']:.3g} (limit {ENHANCE_WAVE_TOL})")
+    log(f"[15 research] (a) encoder_front on this batch's audio vs plain: max abs err "
+        f"{rs['front_err']:.3g}, over max |out| {rs['front_rel']:.3g} (limit 1e-5); kernel "
+        f"{rs['front_ms']:.3f} ms, plain {rs['front_plain_ms']:.3f} ms, bound "
+        f"{rs['front_bound_ms']:.3f} ms ({rs['front_bound_by']}); card {card}")
+    for mode, r in rs["steps"].items():
+        log(f"[15 research] (b) enhance_step {mode} B=2 x 24000, card vs CPU from one state: "
+            f"encoder_front launches {r['launches']}; loss {r['loss']:.5g}, rel {r['loss_rel']:.3g} "
+            f"(limit 1e-3); grad norm rel {r['grad_norm_rel']:.3g} (limit "
+            f"{r['grad_norm_limit']:.3g}; the CPU against itself for a 1e-7 relative input "
+            f"change {r['cpu_self_grad_norm_rel']:.3g})")
+    log(f"[15 research] (c) waveform-mode enhance_step B={rs['B']} x {rs['T']}: "
+        f"{rs['step_ms']:.1f} ms a step over 10 steps after 2 warm-up = "
+        f"{audio_s / (rs['step_ms'] / 1e3):.2f} audio-s/s, peak memory {rs['peak_gb']:.2f} GB "
+        f"(max_memory_allocated), encoder_front launches a step {rs['step_launches']:.0f}; "
+        f"enhance_infer forward (train=False, tanh 1.5) {rs['infer_ms']:.1f} ms = "
+        f"{audio_s / (rs['infer_ms'] / 1e3):.1f}x real time; BYOL step 16 x 64 frames x 512 "
+        f"{rs['byol_ms']:.2f} ms; card {card}")
+    log(f"[15 profile] one waveform-mode enhance_step B={rs['B']}: device busy "
+        f"{rs['busy_ms']:.1f} ms in {rs['ops']} device ops, idle share {rs['idle']:.4f}; "
+        f"front_kernel in the trace {rs['front_in_trace'][0]:.3f} ms in "
+        f"{rs['front_in_trace'][1]} event(s) (the wrapper counts {rs['step_launches']:.0f} "
+        f"launch a step); top: {rs['profile']}; card {card}")
+    log("[15 research] (d) resample to 24 kHz, B=16 x 10 s, card vs host resample_np: "
+        + ", ".join(f"{o} Hz max abs err {r['err']:.3g} in {r['ms']:.3f} ms"
+                    for o, r in rs["resample"].items()) + f" (limit 1e-5); card {card}")
+    log("[15 research] (e) CLIs as subprocesses with --device cuda, all exit 0, in two "
+        "concurrent waves (enhance_train waveform 3 steps, byol_train --features-dir 5 steps, "
+        "lowpass; then enhance_infer on two 7 s files and enhance_train --mode byol) of "
+        + " and ".join(f"{v:.1f} s" for v in rs["cli_waves_s"])
+        + f"; enhance_train --mode byol --byol-ckpt loaded {rs['byol_leaves']} leaves; lowpass "
+        f"energy above 4 kHz over the input's " + ", ".join(f"{v:.3g}" for v in rs["lowpass"])
+        + " (limit 1e-3); speaker_cluster and analyze_features need sklearn: not run here")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
@@ -1673,7 +2039,12 @@ def main() -> int:
          "replaces": "wavtokenizer_tpu/ops/encoder_front.py:371",
          "launches": launches["encoder_front"], "max_abs_err": front_err, "ms": front_ms,
          "plain_ms": front_plain, "bound_ms": front_bound, "bound_by": front_by,
-         "library_ms": None},
+         "library_ms": None,
+         "enhance": {"B": rs["B"], "T": rs["T"], "ms": rs["front_ms"],
+                     "plain_ms": rs["front_plain_ms"], "bound_ms": rs["front_bound_ms"],
+                     "bound_by": rs["front_bound_by"], "max_abs_err": rs["front_err"],
+                     "launches_per_forward": rs["fwd"][True]["launches"],
+                     "launches_per_step": {m: r["launches"] for m, r in rs["steps"].items()}}},
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -460,3 +460,103 @@ def test_istft_same_card_matches_cpu(cuda, B, n_fft, hop):
     want = istft_same(re, im, n_fft, hop)
     got = istft_same(re.to(cuda), im.to(cuda), n_fft, hop).cpu()
     assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The research layer: device resampling, the enhancement path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("orig", [44100, 16000, 48000])
+def test_resample_card_matches_the_host_resampler(cuda, orig):
+    from wavtokenizer_tpu_torch.ops.resample import resample
+    from wavtokenizer_tpu_torch.utils.audio import resample_np
+    x = (np.random.default_rng(orig).normal(size=(4, 2 * orig)) * 0.3).astype(np.float32)
+    got = resample(torch.from_numpy(x).to(cuda), orig, 24000).cpu().numpy()
+    want = np.stack([resample_np(row, orig, 24000) for row in x])
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def small320_np():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from wavtokenizer_tpu_torch import WavTokenizerSpec, init_wavtokenizer
+    spec = WavTokenizerSpec()
+    return spec, init_wavtokenizer(spec, seed=0, random_codebook=True)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_enhanced_forward_launches_the_front_and_matches_cpu(small320_np, train):
+    """Small-320 width, B = 2 x 1 s: one encoder_front launch, and the card
+    within the limits chip_smoke.py [15] holds (features rel-max 1e-4,
+    waveform 1e-3; TF32 off)."""
+    from wavtokenizer_tpu_torch.checkpoint.convert import adapter_from_jax
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.research.adapter import (base_params_from_jax,
+                                                         enhanced_forward, init_adapter)
+    spec, params_np = small320_np
+    audio = torch.from_numpy((np.random.default_rng(1).normal(size=(2, 24000)) * 0.1)
+                             .astype(np.float32))
+    adapter_np = init_adapter(seed=0)
+    res = {}
+    with full_fp32(), torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            ap, st = adapter_from_jax(*adapter_np, dev)
+            before = K.encoder_front.launches
+            res[dev] = enhanced_forward(base_params_from_jax(params_np, spec.seanet, dev),
+                                        spec.seanet, ap, st, audio.to(dev), train=train)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                assert K.encoder_front.launches == before + 1
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(res["cuda"][2], res["cpu"][2]) <= 1e-4
+    assert rel(res["cuda"][1], res["cpu"][1]) <= 1e-4
+    assert rel(res["cuda"][0], res["cpu"][0]) <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["waveform", "feature", "hybrid", "byol"])
+def test_enhance_step_card_matches_cpu_in_float64(cuda, mode):
+    """One step of a narrow model (n_filters 2, dimension 16; adapter 16 ->
+    8; transformer 16) in float64 on the card and on the CPU from one state:
+    the loss, the gradient norm and the parameters after the step agree to
+    1e-6 (in float32 the step's gradient is ill-conditioned, see
+    tests/test_torch_research.py)."""
+    from wavtokenizer_tpu_torch import SEANetConfig, WavTokenizerSpec, init_wavtokenizer
+    from wavtokenizer_tpu_torch.api.pretrained import seanet_from_jax
+    from wavtokenizer_tpu_torch.checkpoint.convert import (adapter_from_jax,
+                                                           inpath_transformer_from_jax)
+    from wavtokenizer_tpu_torch.models.seanet import decoder_layer_specs, encoder_layer_specs
+    from wavtokenizer_tpu_torch.research import enhance as E
+    from wavtokenizer_tpu_torch.research.adapter import (AdapterConfig,
+                                                         InPathTransformerConfig, init_adapter,
+                                                         init_inpath_transformer)
+    from wavtokenizer_tpu_torch.train.step import tree_leaves, tree_map
+
+    spec = WavTokenizerSpec(seanet=SEANetConfig(n_filters=2, dimension=16))
+    p = init_wavtokenizer(spec, seed=0, random_codebook=True)
+    tcfg = InPathTransformerConfig(dim=16, num_heads=2, num_layers=1, ffn=32)
+    ecfg = E.EnhanceConfig(mode=mode, transformer_cfg=tcfg)
+    rng = np.random.default_rng(2)
+    noisy, clean = (torch.from_numpy(rng.normal(size=(2, 3200)) * s) for s in (0.3, 0.1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dbl = lambda tree: tree_map(lambda t: t.to(dev, torch.float64), tree)
+        base = {"encoder": dbl(seanet_from_jax(p["encoder"], encoder_layer_specs(spec.seanet),
+                                               "cpu", train=True)),
+                "decoder": dbl(seanet_from_jax(p["decoder"], decoder_layer_specs(spec.seanet),
+                                               "cpu", train=True))}
+        ap, st = (dbl(t) for t in adapter_from_jax(*init_adapter(
+            AdapterConfig(encoder_dim=16, hidden=8, num_residual_blocks=1), seed=1)))
+        tr = dbl(inpath_transformer_from_jax(init_inpath_transformer(tcfg, seed=2))) \
+            if mode == "byol" else None
+        opt = E.make_enhance_optimizer(ap, base["decoder"], ecfg, tr)
+        _, loss, g_norm = E.enhance_step(opt, ap, st, base["decoder"], base, noisy.to(dev),
+                                         clean.to(dev), spec, ecfg, tr)
+        out[dev] = (float(loss), float(g_norm),
+                    [t.detach().cpu() for t in tree_leaves(E.enhance_trainable(
+                        ap, base["decoder"], ecfg, tr))])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-6 * abs(out["cpu"][0])
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-6 * abs(out["cpu"][1])
+    for a, b in zip(out["cuda"][2], out["cpu"][2], strict=True):
+        assert float((a - b).abs().max()) <= 1e-6

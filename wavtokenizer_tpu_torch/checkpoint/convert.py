@@ -363,3 +363,45 @@ def surgical_resume_params(sd, spec: WavTokenizerSpec, keep_quantizer_layers: in
     if any(k.startswith("multiperioddisc.") for k in sd.keys()):
         params["discriminators"] = discriminator_params(sd)
     return params
+
+
+# --------------------------------------------------------------------------
+# Research trees (research/adapter.py, research/byol.py): the JAX package's
+# trees, as numpy, -> this package's tensors.  ``train/step.py`` imports
+# this module (through ``api/pretrained.py``), so its ``to_tensors`` is
+# imported where it is used.
+# --------------------------------------------------------------------------
+
+def adapter_from_jax(params: dict, state: dict, device="cpu") -> tuple:
+    """The adapter's (params, BN state) of ``research/adapter.py::
+    init_adapter`` (either package's) -> tensors: conv kernels (K, C_in,
+    C_out) become conv weights (C_out, C_in, K); BN params and state as
+    they are."""
+    from ..train.step import to_tensors
+
+    def walk(p):
+        if isinstance(p, dict) and "kernel" in p:
+            return {"weight": to_tensors(np.transpose(p["kernel"], (2, 1, 0)), device).contiguous(),
+                    "bias": to_tensors(p["bias"], device)}
+        if isinstance(p, dict):
+            return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return [walk(v) for v in p]
+        return to_tensors(p, device)
+    return walk(params), to_tensors(state, device)
+
+
+def inpath_transformer_from_jax(params: dict, device="cpu") -> dict:
+    """The in-path transformer (``init_inpath_transformer`` or
+    ``inpath_transformer_from_torch``) -> tensors; linear weights stay
+    (in, out), as the port multiplies ``x @ weight``."""
+    from ..train.step import to_tensors
+    return to_tensors(params, device)
+
+
+def byol_from_jax(params: dict, device="cpu") -> dict:
+    """The BYOL online and target trees (``init_byol``, or a JAX checkpoint's)
+    -> tensors, linear weights (in, out)."""
+    from ..train.step import to_tensors
+    return {"online": to_tensors(params["online"], device),
+            "target": to_tensors(params["target"], device)}

@@ -37,11 +37,14 @@ def hann_window(win_length: int) -> np.ndarray:
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     """(B, T, W) frames at the given hop -> (B, (T - 1) * hop + W).
 
-    Needs W % hop == 0 (every shipped config: 1280/320, 2400/600): the sum
-    is then R = W // hop shifted adds of hop-wide chunks."""
+    When W % hop == 0 (every shipped config: 1280/320, 2400/600) the sum is
+    R = W // hop shifted adds of hop-wide chunks; otherwise ``F.fold`` adds
+    each frame at its offset (the JAX package's scatter-add)."""
     B, T, W = frames.shape
     if W % hop_length:
-        raise NotImplementedError(f"overlap_add needs W % hop == 0, got {W}, {hop_length}")
+        out_len = (T - 1) * hop_length + W
+        return F.fold(frames.transpose(1, 2), output_size=(1, out_len),
+                      kernel_size=(1, W), stride=(1, hop_length)).reshape(B, out_len)
     R = W // hop_length
     chunks = frames.reshape(B, T, R, hop_length)
     acc = frames.new_zeros((B, T + R - 1, hop_length))
@@ -211,7 +214,7 @@ def mdct(audio: torch.Tensor, frame_len: int, padding: str = "same") -> torch.Te
 def imdct(X: torch.Tensor, frame_len: int, padding: str = "same") -> torch.Tensor:
     """IMDCT of (B, T, N) -> (B, L) (decoder/spectral_ops.py:158-192): one
     inverse FFT per frame between the twiddles, the sine window, overlap-add
-    at hop N (``overlap_add``: frame_len = 2 N, so W % hop == 0) and the
+    at hop N (``overlap_add``; frame_len = 2 N) and the
     padding trimmed."""
     window, _, _, ipre, ipost = _mdct_consts(frame_len)
     N = X.shape[-1]

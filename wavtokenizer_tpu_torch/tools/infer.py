@@ -1,7 +1,11 @@
 """Batch reconstruction: load a checkpoint, encode + decode every file of a
 file list, write 16-bit PCM WAVs.
 
-Port of ``infer.py`` (ref infer.py:31-70).  The files of a group share
+Port of ``infer.py`` (ref infer.py:31-70).  ``--ckpt`` is a Lightning
+checkpoint, or one of this package's training checkpoints
+(``train/trainer.py::save_checkpoint``), told apart by content: a training
+checkpoint loads through ``WavTokenizer.from_train_checkpoint``, as the JAX
+tool sends its training checkpoints.  The files of a group share
 batched model calls: every file is cut into overlapping chunks
 (``api.streaming.reconstruct_long_batch``), the chunks of all files ride
 power-of-two batches of up to ``--batch-size``, and each file is
@@ -15,15 +19,30 @@ from __future__ import annotations
 
 import argparse
 import os
+import pickle
+
+import torch
 
 from ..utils.audio import save_pcm16
+
+
+def is_train_checkpoint(path: str) -> bool:
+    """True for a ``train/trainer.py::save_checkpoint`` file: a dict that
+    holds ``gen`` and ``step``.  A file that ``weights_only`` cannot read
+    (a Lightning checkpoint pickling its hyper-parameters) is not one."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except (pickle.UnpicklingError, RuntimeError):
+        return False
+    return isinstance(ckpt, dict) and "gen" in ckpt and "step" in ckpt
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config", required=True)
-    parser.add_argument("--ckpt", required=True, help="torch/Lightning .ckpt")
+    parser.add_argument("--ckpt", required=True,
+                        help="torch/Lightning .ckpt, or a tools.train checkpoint (last.pt)")
     parser.add_argument("--filelist", required=True)
     parser.add_argument("--out-dir", required=True)
     parser.add_argument("--device", default="cuda")
@@ -41,7 +60,9 @@ def main(argv=None):
     from ..api.streaming import reconstruct_long_batch
     from ..utils.audio import read_audio, resample_np
 
-    wt = WavTokenizer.from_pretrained0802(args.config, args.ckpt, device=args.device)
+    load = (WavTokenizer.from_train_checkpoint if is_train_checkpoint(args.ckpt)
+            else WavTokenizer.from_pretrained0802)
+    wt = load(args.config, args.ckpt, device=args.device)
     sr = wt.spec.sample_rate
     os.makedirs(args.out_dir, exist_ok=True)
     with open(args.filelist) as f:

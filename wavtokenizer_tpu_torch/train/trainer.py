@@ -152,6 +152,20 @@ def load_checkpoint(path: str, template: dict) -> dict:
     return template
 
 
+def save_tree(path: str, tree) -> None:
+    """Any tree of dicts, lists, tensors and numbers as one ``torch.save``
+    file, written atomically (the enhancement and BYOL tools' checkpoints,
+    where the JAX package saves any pytree)."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(tree_map(lambda t: t.detach(), tree), tmp)
+    os.replace(tmp, path)
+
+
+def load_tree(path: str, device="cpu"):
+    """A ``save_tree`` file, its tensors on ``device``."""
+    return torch.load(path, map_location=torch.device(device), weights_only=True)
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of one training step, a pure function of (seed,
     step), so that a resumed run draws what the uninterrupted run drew."""
