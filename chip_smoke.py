@@ -53,6 +53,20 @@ the waveform step, enhance_infer's forward and a BYOL step timed; device
 resampling against the host resampler at 16 x 10 s; and the enhancement,
 BYOL and low-pass CLIs as subprocesses on the card.
 
+Then the training options, the native loader and the profiling tools
+([16]) at the small-320 YAML's full width: the trainer's native loader on
+48 WAVs written here (thread count and resume leave its batches unchanged);
+one state after its first step (k-means split out), one batch, one step in
+each of fp32, fp32 with remat, bf16 discriminators, and bf16 discriminators
+and decode side (ms, peak memory, VQ launches; remat against no remat phase
+by phase, bf16 against fp32 at the JAX package's tolerances, the same codes
+in every mode); tools/mem_probe.py with and without remat, check_env.py,
+perf_profile.py (its stage table with MFU; its stage sum against [6]'s round
+trip) and train_profile.py as subprocesses; stage_flops with the kernels
+against the plain versions; the MS-STFT discriminator card against CPU.
+The card's peaks and the kernels' bounds come from
+wavtokenizer_tpu_torch/utils/profiling.py.
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -61,7 +75,9 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -69,16 +85,6 @@ import time
 import numpy as np
 import torch
 
-H100_FP32_FLOPS = 67e12      # dense fp32 outside the tensor cores (SXM data sheet)
-H100_BF16_FLOPS = 989e12     # dense bf16 tensor cores
-H100_TF32_FLOPS = 495e12     # dense TF32 tensor cores
-H100_BYTES = 3.35e12         # HBM3
-# Encoder layers 0-6 of small-320, multiply-adds per audio sample: conv0 224,
-# resblock 32 3072, down k4 s2 4096, resblock 64 6144 (fp32 FMAs on the CUDA
-# cores), and down k8 s4 8192 (three TF32 products each on the tensor cores,
-# 3xTF32).
-FRONT_FP32_MACS_PER_SAMPLE = 224 + 3072 + 4096 + 6144
-FRONT_TF32_MACS_PER_SAMPLE = 8192
 TIMING_BATCH = 128
 TIMING_SECONDS = 3.0
 
@@ -380,38 +386,6 @@ def long_audio_phase(model, spec, K) -> dict:
             "launches": launches}
 
 
-def front_bound_of(S: int, pack: dict) -> tuple:
-    """(least ms, "operations" or "bytes") of the encoder front over S audio
-    samples: the CUDA cores and the tensor cores can run at once, so the
-    operations' time is the larger of the two units' times; the bytes are the
-    audio read once, the (S/8, 128) output written once and the weight pack
-    read once."""
-    ops_s = max(2 * FRONT_FP32_MACS_PER_SAMPLE * S / H100_FP32_FLOPS,
-                3 * 2 * FRONT_TF32_MACS_PER_SAMPLE * S / H100_TF32_FLOPS)
-    n_weights = sum(t.numel() for t in pack.values())
-    bytes_s = (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / H100_BYTES
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
-
-
-def vq_bound_of(N: int, C: int, D: int) -> tuple:
-    """Least time of one VQ search (ms) and what bounds it: the products as
-    3xTF32 on the tensor cores (three TF32 products per multiply-add, the
-    kernel's route to fp32-class accuracy), or the bytes (x, the split
-    codebook, |E|^2 read once, the ids written once)."""
-    ops_s = 3 * 2 * N * C * D / H100_TF32_FLOPS
-    bytes_s = (N * D * 4 + 2 * C * D * 4 + C * 4 + N * 4) / H100_BYTES
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
-
-
-def convnext_bound(M: int, C: int, I: int) -> tuple:
-    """Least time of one ConvNeXt block over M rows (ms) and what bounds it:
-    the two GEMMs' bf16 products and the dw conv/LayerNorm/GELU/residual
-    work in fp32, against each input read once and the output written once."""
-    ops_s = 4 * M * C * I / H100_BF16_FLOPS + 14 * M * C / H100_FP32_FLOPS
-    bytes_s = (2 * M * C * 4 + 2 * C * I * 2 + (13 * C + I) * 4) / H100_BYTES
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes"
-
-
 def rvq_replay(K, quantizer, emb: torch.Tensor, codes: torch.Tensor) -> tuple:
     """The kernel's residual chain replayed with the plain version: layer q's
     plain search on the residual the kernel's own codes of layers < q left.
@@ -439,6 +413,7 @@ def encodec_phase(K) -> dict:
     from wavtokenizer_tpu_torch.models.init import init_encodec
     from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
     from wavtokenizer_tpu_torch.utils.golden import max_flips
+    from wavtokenizer_tpu_torch.utils.profiling import vq_bound_of
 
     out = {}
     cfg = E.encodec_model_24khz_config()
@@ -769,6 +744,7 @@ def train_timing(K) -> dict:
                                                    generator_phase, train_step)
     from wavtokenizer_tpu_torch.train.trainer import step_generator, train_config_from_yaml
     from wavtokenizer_tpu_torch.train.wnorm import fold_tree
+    from wavtokenizer_tpu_torch.utils.profiling import vq_bound_of
 
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, TRAIN_CONFIG)) as f:
@@ -970,6 +946,7 @@ def vocos_phase(K) -> dict:
     from wavtokenizer_tpu_torch.models import vocos, vocos_model
     from wavtokenizer_tpu_torch.models.alt_components import (IMDCTHeadConfig,
                                                               VocosResNetBackboneConfig)
+    from wavtokenizer_tpu_torch.utils.profiling import convnext_bound
 
     spec = vocos_spec_from_config(VOCOS_CONFIG)
     params = init_vocos(spec, seed=0)
@@ -1298,6 +1275,7 @@ def research_phase(K) -> dict:
     from wavtokenizer_tpu_torch.tools.lowpass import energy_above
     from wavtokenizer_tpu_torch.train.step import tree_leaves
     from wavtokenizer_tpu_torch.utils.audio import read_audio, resample_np
+    from wavtokenizer_tpu_torch.utils.profiling import front_bound_of
 
     spec = WavTokenizerSpec()
     sr = spec.sample_rate
@@ -1530,6 +1508,345 @@ def research_phase(K) -> dict:
     return out
 
 
+# [16]: the training options, the native loader and the profiling tools.
+# The bf16 steps are held to fp32 at tests/test_mixed_precision.py's
+# tolerances (rtol, atol) per loss; the sums at the loosest of them.
+BF16_TOLS = {"disc_mp": (0.03, 0.02), "disc_mrd": (0.03, 0.02), "disc_dac": (0.03, 0.05),
+             "gen_mp": (0.03, 0.02), "gen_mrd": (0.03, 0.02), "fm_mp": (0.05, 0.02),
+             "fm_mrd": (0.05, 0.02), "dac_gen": (0.05, 0.05), "dac_feat": (0.05, 0.05),
+             "mel_loss": (0.05, 0.05), "commit_loss": (0.05, 0.05), "disc_total": (0.05, 0.05),
+             "gen_total": (0.05, 0.05)}
+# Remat against no remat: JAX's tests/test_mixed_precision.py holds its
+# remat_disc modes' metrics to this relative tolerance; it holds the losses
+# and the gradient norm here.  The whole gradient vectors are held to
+# REMAT_GRAD_TOL: the recompute's fp32 rounding moves the few terms that sit
+# on a kink (the feature losses' |a - b|, hinges, leaky ReLUs); a recompute
+# that drew a fresh dropout mask moves them by 0.57 (float64, CPU).
+REMAT_TOL = 2e-4
+REMAT_GRAD_TOL = 1e-2
+LOADER_FILES = 48
+OPTION_MODES = {"fp32": {}, "fp32 remat": {"remat": True},
+                "bf16 disc": {"disc_compute_dtype": "bfloat16"},
+                "bf16 disc+decode": {"disc_compute_dtype": "bfloat16",
+                                     "gen_compute_dtype": "bfloat16"}}
+# The CLIs of [16] (c), as subprocesses: (name, arguments).
+OPTION_CLIS = {
+    "mem_probe remat": ["wavtokenizer_tpu_torch.tools.mem_probe", "--batch", "40",
+                        "--seconds", "3"],
+    "mem_probe no remat": ["wavtokenizer_tpu_torch.tools.mem_probe", "--batch", "40",
+                           "--seconds", "3", "--no-remat"],
+    "check_env": ["wavtokenizer_tpu_torch.tools.check_env"],
+    "perf_profile": ["wavtokenizer_tpu_torch.tools.perf_profile", "--batch", "128",
+                     "--seconds", "3", "--iters", "10"],
+    "train_profile": ["wavtokenizer_tpu_torch.tools.train_profile", "--config", TRAIN_CONFIG,
+                      "--batch", "8", "--iters", "1", "--passes", "1"],
+}
+
+
+def _write_loader_wavs(d: str, n: int) -> list:
+    """n files of 4-8 s at 16, 24 and 44.1 kHz, every third stereo."""
+    from scipy.io import wavfile
+
+    paths = []
+    for i in range(n):
+        sr = (16000, 24000, 44100)[i % 3]
+        y = _speech_like(sr, int(sr * (4 + 4 * ((i * 7) % 11) / 10)), seed=i)
+        if i % 3 == 2:
+            y = np.stack([y, 0.7 * y], axis=1)
+        paths.append(os.path.join(d, f"clip{i:02d}.wav"))
+        wavfile.write(paths[-1], sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+    return paths
+
+
+def _copy_state(S, state: dict, tcfg) -> dict:
+    """A copy of a train state: its trees, optimizers and schedules."""
+    st = S.new_train_state(state["gen"], state["disc"], state["vq"], state["decoder"], tcfg,
+                           state["step"])
+    for k in ("opt_gen", "opt_disc", "sched_gen", "sched_disc"):
+        st[k].load_state_dict(state[k].state_dict())
+    return st
+
+
+def _flat_grads(opt) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in opt.param_groups[0]["params"]])
+
+
+def _remat_by_phase(S, base: dict, audio, spec, tcfg, generator) -> dict:
+    """Remat against no remat, phase by phase from copies of one state, with
+    the same draws (bandwidth, dropout masks, k-means): the discriminator
+    phase's losses and gradients, then the generator phase's losses,
+    gradient norm and gradients over the SAME discriminators (the no-remat
+    copy's, updated).  A whole step cannot show remat's effect alone: AdamW's
+    first moments over their root second moments turn rounding-level
+    differences of near-zero gradients into updates of up to the learning
+    rate.  Returns each quantity's relative difference."""
+    rcfg = dataclasses.replace(tcfg, remat=True)
+    runs = []
+    for cfg in (tcfg, rcfg, tcfg):
+        st = _copy_state(S, base, cfg)
+        g = torch.Generator().manual_seed(generator.initial_seed())
+        bw = int(torch.randint(0, cfg.num_bandwidths, (), generator=g))
+        drop_d, drop_g = S._dropout_generators(g, audio.device)
+        vq, m = S.discriminator_phase(st, audio, spec, cfg, bw, 1, g, drop_d)
+        runs.append({"st": st, "cfg": cfg, "g": g, "bw": bw, "drop_g": drop_g, "vq": vq,
+                     "disc": {k: float(v.detach()) for k, v in m.items()},
+                     "disc_grads": _flat_grads(st["opt_disc"])})
+    with torch.no_grad():
+        for r in runs[1:]:
+            for a, b in zip(S.tree_leaves(runs[0]["st"]["disc"]), S.tree_leaves(r["st"]["disc"])):
+                b.copy_(a)
+    for r in runs:
+        m = S.generator_phase(r["st"], r["vq"], audio, spec, r["cfg"], r["bw"], 1, r["g"],
+                              r["drop_g"], with_grad_norm=True)
+        r["gen"] = {k: float(v.detach()) for k, v in m.items()}
+        r["gen_grads"] = _flat_grads(r["st"]["opt_gen"])
+        del r["st"]
+
+    def diff(a, b):
+        rel = {k: rel_err(b["disc"][k], v) for k, v in a["disc"].items()}
+        rel.update({k: rel_err(b["gen"][k], v) for k, v in a["gen"].items()})
+        for k in ("disc_grads", "gen_grads"):
+            rel[k] = float((b[k] - a[k]).norm() / a[k].norm())
+        return rel
+
+    # The third run repeats the first: the card's own run-to-run difference.
+    return diff(runs[0], runs[1]), diff(runs[0], runs[2])
+
+
+def _run_cli(name: str, root: str) -> tuple:
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *OPTION_CLIS[name]], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    return res, time.perf_counter() - t0
+
+
+def options_phase(K, rt_ms: float) -> dict:
+    """Phase 16 at the small-320 YAML's full width (40 x 3 s, k-means 200,
+    dropout 0.1, discriminators at full width).
+
+    (a) The native loader on LOADER_FILES WAVs written here: the trainer
+    takes it (its ``native_loader`` event; the card machine has g++), 2 and
+    4 threads yield equal batches, ``start_seq`` resumes the stream, and its
+    rate at 40 x 72 000.  (b) One state after its first step (k-means, split
+    into k-means alone and the rest), one batch of that loader, one step in
+    each mode of OPTION_MODES from a copy of the state, then one more: ms,
+    peak memory, VQ launches; remat against no remat within REMAT_TOL, bf16
+    within BF16_TOLS and gradient cosine > 0.9, codes equal in every mode.
+    (c) The CLIs of OPTION_CLIS as subprocesses: perf_profile's stage sum
+    against [6]'s round trip ``rt_ms`` (10%), and ``stage_flops`` with the
+    kernels against it with the plain versions, here, at 8 x 3 s.  (d) The
+    MS-STFT discriminator at 32 filters, 2 x 1 s, card against CPU."""
+    import tempfile
+
+    import yaml
+
+    import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch import WavTokenizer, init_wavtokenizer
+    from wavtokenizer_tpu_torch.models import vocos as vocos_mod
+    from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.native import NativeDataLoader
+    from wavtokenizer_tpu_torch.ops import vq as vq_mod
+    from wavtokenizer_tpu_torch.train.discriminators import (init_msstft_discriminator,
+                                                             msstft_discriminator)
+    from wavtokenizer_tpu_torch.train.trainer import (Trainer, step_generator,
+                                                      train_config_from_yaml)
+    from wavtokenizer_tpu_torch.train.vq_train import kmeans
+    from wavtokenizer_tpu_torch.train.wnorm import fold_tree
+    from wavtokenizer_tpu_torch.utils.profiling import pipeline_stages, stage_flops
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TRAIN_CONFIG)) as f:
+        spec, tcfg, data, _ = train_config_from_yaml(yaml.safe_load(f))
+    out = {"B": data.batch_size, "T": data.num_samples}
+    dev = "cuda"
+
+    # (a) the native loader.
+    with tempfile.TemporaryDirectory() as d:
+        paths = _write_loader_wavs(d, LOADER_FILES)
+        filelist = os.path.join(d, "files.txt")
+        with open(filelist, "w") as f:
+            f.write("\n".join(paths) + "\n")
+        data.filelist_path = filelist
+        tr = Trainer(spec, tcfg, data, out_dir=os.path.join(d, "run"), device=dev)
+        stream = tr._make_train_iter(0)
+        tr.close()
+        with open(os.path.join(d, "run", "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        check(events == [{"event": "native_loader", "files": LOADER_FILES}],
+              f"the trainer did not take the native loader: {events}")
+        kw = dict(sample_rate=data.sampling_rate, num_samples=data.num_samples,
+                  batch_size=data.batch_size, seed=3407, drop_last=False)
+        first = [next(stream) for _ in range(3)]
+        four = NativeDataLoader(paths, num_threads=4, **kw)
+        for i, b in enumerate(first):
+            check(np.array_equal(four.next_batch(), b), f"loader batch {i}: 4 threads != 2")
+        four.close()
+        resumed = NativeDataLoader(paths, num_threads=2, start_seq=2, **kw)
+        check(np.array_equal(resumed.next_batch(), first[2]),
+              "loader start_seq=2 differs from the stream's batch 2")
+        resumed.close()
+        rate = NativeDataLoader(paths, num_threads=8, **kw)
+        rate.next_batch()
+        t0 = time.perf_counter()
+        n_rate = 6
+        for _ in range(n_rate):
+            rate.next_batch()
+        out["batches_per_s"] = n_rate / (time.perf_counter() - t0)
+        check(rate.errors == 0, f"loader errors {rate.errors}")
+        rate.close()
+    audio = torch.as_tensor(first[0]).to(dev)
+
+    # (b) the four modes from one state.
+    base = S.create_train_state(spec, tcfg, seed=0, device=dev)
+    with torch.no_grad():
+        emb = seanet_encode(fold_tree(base["gen"]["encoder"]), spec.seanet, audio[:, :, None],
+                            front=False).reshape(-1, spec.vq.dimension)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kmeans(emb, spec.vq.bins, spec.vq.kmeans_iters, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        out["kmeans_ms"] = (time.perf_counter() - t0) * 1e3
+    del emb
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
+    torch.cuda.synchronize()
+    out["first_ms"] = (time.perf_counter() - t0) * 1e3
+    out["first_launches"] = K.vq_nearest.launches
+    codes_seen = []
+    real_forward = S.vq_train_forward
+
+    def recording_forward(*args, **kw):
+        res = real_forward(*args, **kw)
+        codes_seen.append(res[1].detach().clone())
+        return res
+
+    modes, grads, codes = {}, {}, {}
+    S.vq_train_forward = recording_forward
+    try:
+        for name, over in OPTION_MODES.items():
+            cfg = dataclasses.replace(tcfg, **over)
+            st = _copy_state(S, base, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            r = {"ms": [], "launches": []}
+            for step in (1, 2):
+                codes_seen.clear()
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                _, m = S.train_step(st, audio, spec, cfg, step_generator(0, step),
+                                    with_grad_norm=True)
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+                r["launches"].append(K.vq_nearest.launches)
+                if step == 1:
+                    r["metrics"] = {k: float(v) for k, v in m.items()}
+                    grads[name] = _flat_grads(st["opt_gen"])
+                    codes[name] = [c.cpu() for c in codes_seen]
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            modes[name] = r
+            del st
+            torch.cuda.empty_cache()
+    finally:
+        S.vq_train_forward = real_forward
+    out["remat"], out["remat_floor"] = _remat_by_phase(S, base, audio, spec, tcfg,
+                                                       step_generator(0, 1))
+    del base
+    torch.cuda.empty_cache()
+    ref = modes["fp32"]["metrics"]
+    for name, r in modes.items():
+        check(all(np.isfinite(v) for v in r["metrics"].values()), f"{name}: non-finite {r}")
+        check(r["launches"] == [2, 2], f"{name}: vq_nearest launches per step {r['launches']}")
+        check(len(codes[name]) == 2 and all(torch.equal(a, b) for a, b in
+                                            zip(codes[name], codes["fp32"])),
+              f"{name}: the step's codes differ from the fp32 step's")
+        g, g0 = grads[name], grads["fp32"]
+        r["grad_cos"] = float(g @ g0 / (g.norm() * g0.norm()))
+        r["rel"] = {k: rel_err(v, ref[k]) for k, v in r["metrics"].items()}
+    out["modes"] = modes
+    del grads
+    for k, v in out["remat"].items():
+        limit = REMAT_GRAD_TOL if k.endswith("_grads") else REMAT_TOL
+        check(v <= limit, f"remat vs no remat: {k} rel {v:.3g} (limit {limit})")
+    for name in ("bf16 disc", "bf16 disc+decode"):
+        r = modes[name]
+        for k, (rtol, atol) in BF16_TOLS.items():
+            got, want = r["metrics"][k], ref[k]
+            check(abs(got - want) <= atol + rtol * abs(want),
+                  f"{name}: {k} {got:.5g} vs fp32 {want:.5g} (rtol {rtol}, atol {atol})")
+        check(r["grad_cos"] > 0.9, f"{name}: gradient cosine with fp32 {r['grad_cos']:.4f}")
+
+    # (c) the CLIs.
+    clis = {}
+    with subprocess.Popen([sys.executable, "-m", *OPTION_CLIS["check_env"]], cwd=root,
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) as env:
+        for name in ("mem_probe remat", "mem_probe no remat"):
+            clis[name] = _run_cli(name, root)
+        env_out, env_err = env.communicate(timeout=900)
+    check(env.returncode == 0 and env_out.strip().endswith("OK"),
+          f"check_env failed ({env.returncode}):\n{env_out[-3000:]}\n{env_err[-2000:]}")
+    out["check_env"] = [l for l in env_out.splitlines() if l.startswith(("kernel", "native"))]
+    for name in ("perf_profile", "train_profile"):
+        clis[name] = _run_cli(name, root)
+    results = {}
+    for name, (res, secs) in clis.items():
+        check(res.returncode == 0, f"{name} failed ({res.returncode}):\n{res.stdout[-2000:]}\n"
+                                   f"{res.stderr[-3000:]}")
+        results[name] = json.loads(res.stdout.strip().splitlines()[-1])
+        results[name]["cli_s"] = secs
+    out["clis"] = results
+    out["perf_table"] = [l for l in clis["perf_profile"][0].stdout.splitlines()
+                         if l.startswith("  ")]
+    st = results["perf_profile"]["stages"]
+    out["stage_sum_ms"] = sum(st[k]["ms"] for k in ("encoder", "vq", "backbone", "head"))
+    check(abs(out["stage_sum_ms"] - rt_ms) <= 0.1 * rt_ms,
+          f"perf_profile stage sum {out['stage_sum_ms']:.3f} ms vs [6] round trip {rt_ms:.3f} ms")
+    for name in ("mem_probe remat", "mem_probe no remat"):
+        check(results[name]["fits"] and results[name]["peak_bytes"] > 0,
+              f"{name}: {results[name]}")
+
+    small320 = spec
+    model = WavTokenizer.from_jax_params(init_wavtokenizer(small320, seed=0,
+                                                           random_codebook=True),
+                                         small320, device=dev)
+    a8 = torch.as_tensor((np.random.default_rng(16).normal(size=(8, 72000)) * 0.1)
+                         .astype(np.float32)).to(dev)
+    stages = pipeline_stages(model.params, small320, a8)
+    out["flops_kernels"] = stage_flops(stages)
+    out["flops_launched"] = {"vq": K.vq_nearest.flops, "convnext": K.convnext_block.flops,
+                             "front": K.encoder_front.flops}
+    plain = {"vq": (vq_mod, "vq_nearest", lambda *a: K.vq_nearest_reference(*a[:3])),
+             "cnx": (vocos_mod, "convnext_block_kernel",
+                     lambda *a: K.convnext_block_reference(*a[:10])),
+             "front": (K, "encoder_front", K.encoder_front_reference)}
+    saved = {k: getattr(mod, attr) for k, (mod, attr, _) in plain.items()}
+    try:
+        for mod, attr, fn in plain.values():
+            setattr(mod, attr, fn)
+        out["flops_plain"] = stage_flops(stages)
+    finally:
+        for k, (mod, attr, _) in plain.items():
+            setattr(mod, attr, saved[k])
+    check(out["flops_kernels"] == out["flops_plain"],
+          f"stage_flops with the kernels {out['flops_kernels']} != with the plain versions "
+          f"{out['flops_plain']}")
+    del model, stages
+
+    # (d) the MS-STFT discriminator.
+    params = init_msstft_discriminator(seed=0, filters=32)
+    x = torch.as_tensor((np.random.default_rng(17).normal(size=(2, 24000)) * 0.1)
+                        .astype(np.float32))
+    with torch.no_grad():
+        want = msstft_discriminator(params, x)
+        got = msstft_discriminator(S.tree_map(lambda t: t.to(dev), params), x.to(dev))
+    pairs = list(zip(got[0] + sum(got[1], []), want[0] + sum(want[1], [])))
+    out["msstft_rel"] = max(rel_max(g.cpu(), w) for g, w in pairs)
+    out["msstft_maps"] = len(pairs)
+    check(out["msstft_rel"] <= 1e-4, f"msstft card vs CPU rel-max {out['msstft_rel']:.3g}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -1543,6 +1860,10 @@ def main() -> int:
         from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
                                                          load_golden, max_flips,
                                                          nearest_two)
+        from wavtokenizer_tpu_torch.utils.profiling import (FRONT_FP32_MACS_PER_SAMPLE,
+                                                            FRONT_TF32_MACS_PER_SAMPLE, H100,
+                                                            convnext_bound, front_bound_of,
+                                                            vq_bound_of)
     except ImportError as e:
         log(f"chip_smoke: the wavtokenizer_tpu_torch package is not importable ({e})")
         return 1
@@ -1750,7 +2071,7 @@ def main() -> int:
         vq_plain = cuda_ms(lambda: K.vq_nearest_reference(flat, embed, esq), 20)
         vq_bound, vq_by = vq_bound_of(N, Cb, D)
         # Beside it the same work as fp32 FMAs on the CUDA cores.
-        vq_fp32_only = 2 * N * Cb * D / H100_FP32_FLOPS * 1e3
+        vq_fp32_only = 2 * N * Cb * D / H100["fp32"] * 1e3
 
         xb = (torch.randn(TIMING_BATCH, T_frames, C, generator=gen)).to(dev)
         bargs = (xb, block["dw"], block["dwb"], block["adanorm"]["scale"][0],
@@ -1772,7 +2093,7 @@ def main() -> int:
             front_plain = cuda_ms(lambda: K.encoder_front_reference(a3, enc_p, enc_specs), 5)
         S = audio.numel()
         front_fp32_only = 2 * (FRONT_FP32_MACS_PER_SAMPLE + FRONT_TF32_MACS_PER_SAMPLE) \
-            * S / H100_FP32_FLOPS * 1e3
+            * S / H100["fp32"] * 1e3
         front_bound, front_by = front_bound_of(S, enc_p[0]["front"])
     log(f"[6 timing] encoder_front B={TIMING_BATCH} x {audio.shape[1]}: kernel "
         f"{front_ms:.3f} ms, plain {front_plain:.3f} ms, bound {front_bound:.3f} ms "
@@ -2005,6 +2326,58 @@ def main() -> int:
         f"energy above 4 kHz over the input's " + ", ".join(f"{v:.3g}" for v in rs["lowpass"])
         + " (limit 1e-3); speaker_cluster and analyze_features need sklearn: not run here")
 
+    # -- 16. training options, native loader, profiling tools ------------
+    t16 = time.perf_counter()
+    op = options_phase(K, rt_ms)
+    fp32 = op["modes"]["fp32"]
+    log(f"[16 options] (a) native loader: the trainer took it ({LOADER_FILES} WAVs of 4-8 s at "
+        f"16/24/44.1 kHz, every third stereo); 2 and 4 threads gave equal batches, start_seq=2 "
+        f"gave the stream's batch 2; {op['batches_per_s']:.2f} batches/s of {op['B']} x "
+        f"{op['T']} with 8 threads = {op['batches_per_s'] * fp32['ms'][1] / 1e3:.2f} batches "
+        f"per fp32 step of {fp32['ms'][1]:.1f} ms")
+    log(f"[16 options] (b) first step of {TRAIN_CONFIG} at {op['B']} x {op['T']}: "
+        f"{op['first_ms']:.1f} ms = k-means alone ({op['first_launches'] - 2} iterations) "
+        f"{op['kmeans_ms']:.1f} ms + the rest {op['first_ms'] - op['kmeans_ms']:.1f} ms; "
+        f"vq_nearest launches {op['first_launches']}; card {card}")
+    for name, r in op["modes"].items():
+        worst = max(r["rel"], key=r["rel"].get)
+        log(f"[16 options] (b) {name}: steps {r['ms'][0]:.1f}, {r['ms'][1]:.1f} ms "
+            f"({op['B'] * op['T'] / small320.sample_rate / (r['ms'][1] / 1e3):.2f} audio-s/s), "
+            f"peak {r['peak_gb']:.2f} GB (max_memory_allocated, a copy of the state beside "
+            f"it), vq_nearest launches {r['launches']}; the whole step against fp32: gradient cosine "
+            f"{r['grad_cos']:.6f}, worst {worst} rel {r['rel'][worst]:.3g}; card {card}")
+    log(f"[16 options] (b) losses, fp32 step: " + ", ".join(
+        f"{k} {v:.5g}" for k, v in fp32["metrics"].items()) + f"; codes equal in all "
+        f"{len(op['modes'])} modes (limits: bf16 BF16_TOLS, cosine > 0.9)")
+    log(f"[16 options] (b) remat vs no remat phase by phase (pos-net dropout on, the "
+        f"generator phase over the same discriminators), relative: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in op["remat"].items()) + f" (limits {REMAT_TOL}, the "
+        f"gradient vectors {REMAT_GRAD_TOL}); no remat against itself: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in op["remat_floor"].items() if v))
+    cl = op["clis"]
+    for name in ("mem_probe remat", "mem_probe no remat"):
+        r = cl[name]
+        log(f"[16 options] (c) {name} (subprocess, {r['cli_s']:.1f} s): batch {r['batch']} x "
+            f"{r['T']}, remat {r['remat']}: peak {r['peak_bytes'] / 1e9:.2f} GB over two steps "
+            f"({', '.join(f'{t:.1f}' for t in r['step_ms'])} ms); card {card}")
+    log("[16 options] (c) check_env (subprocess): " + "; ".join(op["check_env"]))
+    log(f"[16 options] (c) perf_profile B=128 x 3 s (subprocess, {cl['perf_profile']['cli_s']:.1f}"
+        f" s): stage sum {op['stage_sum_ms']:.3f} ms against [6]'s round trip {rt_ms:.3f} ms "
+        f"(limit 10%); card {card}")
+    for line in op["perf_table"]:
+        log(f"[16 perf_profile] {line.strip()}")
+    log(f"[16 options] (c) stage_flops at 8 x 3 s, kernels and plain versions equal: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in op["flops_kernels"].items()))
+    tp = cl["train_profile"]
+    log(f"[16 options] (c) train_profile --batch 8 --passes 1 (subprocess, {tp['cli_s']:.1f} s): "
+        f"first step {tp['first_step']['first_ms']:.1f} ms = k-means "
+        f"{tp['first_step']['kmeans_ms']:.1f} + rest {tp['first_step']['rest_ms']:.1f}, steady "
+        f"{tp['first_step']['steady_ms']:.1f}; " + ", ".join(
+            f"{r['stage']} {r['ms']:.1f}" for r in tp["table"]) + f" ms; card {card}")
+    log(f"[16 options] (d) msstft_discriminator filters 32, 2 x 24000, card vs CPU over "
+        f"{op['msstft_maps']} outputs and maps: rel-max {op['msstft_rel']:.3g} (limit 1e-4)")
+    log(f"[16 options] phase time {time.perf_counter() - t16:.1f} s")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
@@ -2022,7 +2395,9 @@ def main() -> int:
                    "bound_by": tt["vq_bound_by"],
                    "off_float64_uncentred": tt["raw_wrong"],
                    "launches_first_step": tt["launches_first"],
-                   "launches_per_step": tt["launches_per_step"][-1]}},
+                   "launches_per_step": tt["launches_per_step"][-1],
+                   "launches_per_step_by_option": {
+                       name: r["launches"][-1] for name, r in op["modes"].items()}}},
         {"name": "convnext_block", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/convnext.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:100",

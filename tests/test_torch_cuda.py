@@ -560,3 +560,129 @@ def test_enhance_step_card_matches_cpu_in_float64(cuda, mode):
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-6 * abs(out["cpu"][1])
     for a, b in zip(out["cuda"][2], out["cpu"][2], strict=True):
         assert float((a - b).abs().max()) <= 1e-6
+
+
+def _tiny_train_spec():
+    from wavtokenizer_tpu_torch import (ISTFTHeadConfig, SEANetConfig, VQConfig,
+                                        VocosBackboneConfig, WavTokenizerSpec)
+
+    return WavTokenizerSpec(
+        seanet=SEANetConfig(dimension=16, n_filters=2, ratios=(8, 5, 4, 2)),
+        vq=VQConfig(dimension=16, bins=32, kmeans_iters=2),
+        backbone=VocosBackboneConfig(input_channels=16, dim=32, intermediate_dim=64,
+                                     num_layers=1, adanorm_num_embeddings=4),
+        head=ISTFTHeadConfig(dim=32, n_fft=1280, hop_length=320))
+
+
+@pytest.mark.parametrize("remat_disc", [True, "store_dac"])
+def test_remat_changes_no_gradient_on_the_card(cuda, remat_disc):
+    """Remat on against off on the card (fp32, TF32 off), dropout 0.1 drawn
+    from CUDA generators, which the recompute must replay: phase by phase
+    (the generator phase over the same, updated discriminators, since AdamW
+    turns rounding-level gradient differences into updates of up to the
+    learning rate), every loss and the gradient norm within 2e-4 relative,
+    both phases' gradients within 1e-2 (the recompute's rounding moves the
+    terms on a kink; a fresh dropout mask moves them by ~0.5); the VQ
+    kernel's launches unchanged."""
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.train import step as S
+
+    spec = _tiny_train_spec()
+    audio = torch.from_numpy((np.random.default_rng(0).normal(size=(2, 38 * 320)) * 0.1)
+                             .astype(np.float32)).to(cuda)
+    runs = []
+    with full_fp32():
+        for remat in (False, True):
+            tcfg = S.TrainConfig(max_steps=1000, disc_channels_scale=0.0625, pos_dropout=0.1,
+                                 remat=remat, remat_disc=remat_disc)
+            st = S.create_train_state(spec, tcfg, seed=0, device=cuda)
+            K.reset_launch_counts()
+            g = torch.Generator().manual_seed(0)
+            drop_d, drop_g = S._dropout_generators(g, cuda)
+            vq, m = S.discriminator_phase(st, audio, spec, tcfg, 1, 1, g, drop_d)
+            runs.append({"st": st, "tcfg": tcfg, "g": g, "drop_g": drop_g, "vq": vq, "m": m,
+                         "launches": K.vq_nearest.launches,
+                         "grads": [p.grad.clone()
+                                   for p in st["opt_disc"].param_groups[0]["params"]]})
+        with torch.no_grad():
+            for x, y in zip(S.tree_leaves(runs[0]["st"]["disc"]),
+                            S.tree_leaves(runs[1]["st"]["disc"])):
+                y.copy_(x)
+        for r in runs:
+            K.reset_launch_counts()
+            r["m"].update(S.generator_phase(r["st"], r["vq"], audio, spec, r["tcfg"], 1, 1,
+                                            r["g"], r["drop_g"], with_grad_norm=True))
+            r["grads"] += [p.grad.clone() for p in r["st"]["opt_gen"].param_groups[0]["params"]]
+            r["launches"] += K.vq_nearest.launches
+    torch.cuda.synchronize()
+    a, b = runs
+    assert a["launches"] == b["launches"] == spec.vq.kmeans_iters + 2
+    for k, v in a["m"].items():
+        got, want = float(b["m"][k].detach()), float(v.detach())
+        assert abs(got - want) <= 2e-4 * abs(want), k
+    ga, gb = (torch.cat([t.reshape(-1) for t in r["grads"]]) for r in runs)
+    assert float((ga - gb).norm()) <= 1e-2 * float(ga.norm())
+
+
+def test_bf16_training_step_on_the_card(cuda):
+    """Both bf16 compute types at a tiny width: finite fp32 losses and
+    gradients, the same codes as the fp32 step (the encoder and VQ are not
+    cast), 2 VQ launches a step after the first."""
+    import dataclasses
+
+    from wavtokenizer_tpu_torch.train import step as S
+
+    spec = _tiny_train_spec()
+    base_cfg = S.TrainConfig(max_steps=1000, disc_channels_scale=0.0625)
+    audio = torch.from_numpy((np.random.default_rng(1).normal(size=(2, 38 * 320)) * 0.1)
+                             .astype(np.float32)).to(cuda)
+    for over in ({}, {"disc_compute_dtype": "bfloat16"},
+                 {"disc_compute_dtype": "bfloat16", "gen_compute_dtype": "bfloat16"}):
+        tcfg = dataclasses.replace(base_cfg, **over)
+        st = S.create_train_state(spec, tcfg, seed=0, device=cuda)
+        for step in range(2):
+            K.reset_launch_counts()
+            _, m = S.train_step(st, audio, spec, tcfg, torch.Generator().manual_seed(step),
+                                with_grad_norm=True)
+        torch.cuda.synchronize()
+        assert K.vq_nearest.launches == 2
+        assert all(v.dtype == torch.float32 and bool(torch.isfinite(v)) for v in m.values())
+        assert all(p.grad.dtype == torch.float32 for p in st["opt_gen"].param_groups[0]["params"])
+
+
+def test_stage_flops_same_with_kernels_and_plain_versions(cuda, monkeypatch):
+    from wavtokenizer_tpu_torch import WavTokenizer, init_wavtokenizer
+    from wavtokenizer_tpu_torch.models import vocos as vocos_mod
+    from wavtokenizer_tpu_torch.ops import vq as vq_mod
+    from wavtokenizer_tpu_torch.utils.profiling import pipeline_stages, stage_flops
+
+    spec = _tiny_train_spec()
+    model = WavTokenizer.from_jax_params(init_wavtokenizer(spec, seed=0, random_codebook=True),
+                                         spec, device=cuda)
+    audio = (torch.randn(2, 24000, generator=torch.Generator().manual_seed(3)) * 0.1).to(cuda)
+    stages = pipeline_stages(model.params, spec, audio)
+    with_kernels = stage_flops(stages)
+    assert K.vq_nearest.flops > 0 or K.convnext_block.flops > 0     # the roundtrip's launches
+    monkeypatch.setattr(vq_mod, "vq_nearest", lambda *a: K.vq_nearest_reference(*a[:3]))
+    monkeypatch.setattr(vocos_mod, "convnext_block_kernel",
+                        lambda *a: K.convnext_block_reference(*a[:10]))
+    assert stage_flops(stages) == with_kernels
+
+
+def test_msstft_discriminator_card_matches_cpu(cuda):
+    from wavtokenizer_tpu_torch.train.discriminators import (init_msstft_discriminator,
+                                                             msstft_discriminator)
+    from wavtokenizer_tpu_torch.train.step import tree_map
+
+    params = init_msstft_discriminator(seed=0, filters=8)
+    x = torch.randn(2, 8000, generator=torch.Generator().manual_seed(4)) * 0.1
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = msstft_discriminator(params, x)
+            got = msstft_discriminator(tree_map(lambda t: t.to(cuda), params), x.to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for g, w in zip(got[0] + sum(got[1], []), want[0] + sum(want[1], []), strict=True):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())

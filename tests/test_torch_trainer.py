@@ -223,7 +223,8 @@ data:
     out = tmp_path / "run"
     assert train_cli.main(["fit", "--config", str(cfg), "--out-dir", str(out),
                            "--max-batches", "2", "--seed", "5", "--device", "cpu"]) == 0
-    rows = [json.loads(l) for l in open(out / "metrics.jsonl")]
+    # The step rows (the loader's event comes first: native or Python).
+    rows = [r for r in map(json.loads, open(out / "metrics.jsonl")) if "step" in r]
     assert rows[0]["step"] == 0 and np.isfinite(rows[0]["gen_total"])
     model = WavTokenizer.from_train_checkpoint(str(cfg), str(out / "last.pt"), device="cpu")
     ckpt = torch.load(out / "last.pt", weights_only=True)
@@ -237,10 +238,12 @@ data:
         model.params["quantizer"]["embed"].numpy(), ckpt["vq"]["embed"].numpy())
 
 
-@pytest.mark.parametrize("dtype,ok", [("float32", True), ("bfloat16", False)])
+@pytest.mark.parametrize("dtype,ok", [("float32", True), ("bfloat16", True),
+                                      ("bfloat61", False)])
 def test_yaml_disc_compute_dtype_is_float32_or_refused(dtype, ok):
-    """The bf16 discriminators of the JAX package are not ported: a YAML
-    asking for them is refused, not trained in fp32 without a word."""
+    """A YAML's disc_compute_dtype reaches TrainConfig (float32, or bf16
+    discriminators); a name that is no floating type is refused, as JAX's
+    ``jnp.dtype`` refuses it, not trained in fp32 without a word."""
     import yaml
 
     config = yaml.safe_load(CODEC_YAML)
@@ -248,6 +251,7 @@ def test_yaml_disc_compute_dtype_is_float32_or_refused(dtype, ok):
     if ok:
         spec, tcfg, _, _ = trainer_mod.train_config_from_yaml(config)
         assert tcfg.max_steps == 1000 and spec.vq.bins == 64
+        assert tcfg.disc_compute_dtype == dtype
     else:
         with pytest.raises(ValueError, match="disc_compute_dtype"):
             trainer_mod.train_config_from_yaml(config)

@@ -31,6 +31,7 @@ from ..ops import kernels
 from ..ops.conv import sconv1d, sconv_transpose1d
 from ..ops.encoder_front import front_geometry_matches
 from ..ops.lstm import slstm, slstm_layers
+from ..ops.remat import checkpointed
 
 
 @dataclass(frozen=True)
@@ -196,8 +197,13 @@ def _plain_front(params: list, specs: list[LayerSpec], x: torch.Tensor) -> torch
     return x
 
 
+# The layers the training encoder rematerializes one by one; the ELUs
+# between them are cheap to run again with the next layer's recompute.
+_REMAT_KINDS = ("conv", "convtr", "resblock", "lstm")
+
+
 def seanet_encode(params: list, cfg: SEANetConfig, audio: torch.Tensor,
-                  front: bool = True) -> torch.Tensor:
+                  front: bool = True, remat: bool = False) -> torch.Tensor:
     """audio (B, T, 1) -> latent (B, T', dimension), fp32.
 
     When ``front`` is set and ``front_geometry_matches`` admits the encoder
@@ -205,13 +211,15 @@ def seanet_encode(params: list, cfg: SEANetConfig, audio: torch.Tensor,
     go through ``ops/kernels.py::encoder_front``: its CUDA kernel on the
     card, its plain version (these same layers) on the CPU.  ``front=False``
     runs every layer plainly.  The caller sets the precision:
-    ``models/wavtokenizer.encode_infer`` turns TF32 off around this call."""
+    ``models/wavtokenizer.encode_infer`` turns TF32 off around this call.
+    ``remat`` (training) checkpoints each conv, resblock and LSTM layer
+    (``ops/remat.py``), as the JAX package's ``apply_seanet(remat=True)``."""
     specs = encoder_layer_specs(cfg)
     x, start = audio, 0
     if front and front_geometry_matches(specs, params, audio.shape[1]):
         x, start = kernels.encoder_front(audio.contiguous(), params, specs), 7
     for p, spec in zip(params[start:], specs[start:]):
-        x = _apply_layer(p, spec, x)
+        x = checkpointed(_apply_layer, p, spec, x, remat=remat and spec.kind in _REMAT_KINDS)
     return x
 
 

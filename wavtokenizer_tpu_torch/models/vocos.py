@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import conv1d
 from ..ops.kernels import convnext_block as convnext_block_kernel
+from ..ops.remat import checkpointed
 from ..ops.spectral import istft_same
 
 
@@ -133,20 +134,21 @@ def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None,
 def backbone_stem(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
                   bandwidth_id: int | None = None,
                   dropout_generator: torch.Generator | None = None,
-                  dropout_rate: float = 0.0) -> torch.Tensor:
+                  dropout_rate: float = 0.0, remat: bool = False) -> torch.Tensor:
     """The backbone up to its ConvNeXt stack: embed conv -> pos-net (2
     resblocks, attention, 2 resblocks, GroupNorm) -> (Ada)LN; the first
-    block's input."""
+    block's input.  ``remat`` checkpoints each pos-net block (training)."""
     g = cfg.groupnorm_groups
 
     def res(p, x):
-        return pos_resnet_block(p, x, g, dropout_generator, dropout_rate)
+        return checkpointed(pos_resnet_block, p, x, g, dropout_generator, dropout_rate,
+                            remat=remat, generators=(dropout_generator,))
 
     x = conv1d(x, params["embed"]["weight"], params["embed"]["bias"], padding=(3, 3))
     pos = params["pos_net"]
     x = res(pos[0], x)
     x = res(pos[1], x)
-    x = attn_block(pos[2], x, g)
+    x = checkpointed(attn_block, pos[2], x, g, remat=remat)
     x = res(pos[3], x)
     x = res(pos[4], x)
     x = group_norm(x, pos[5]["weight"], pos[5]["bias"], g)
@@ -162,14 +164,15 @@ def backbone_stem(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
 def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
                    bandwidth_id: int | None = None, fused: bool = True,
                    dropout_generator: torch.Generator | None = None,
-                   dropout_rate: float = 0.0) -> torch.Tensor:
+                   dropout_rate: float = 0.0, remat: bool = False) -> torch.Tensor:
     """x (B, T, input_channels) -> (B, T, dim) (ref decoder/models.py:223-235):
     ``backbone_stem`` -> ConvNeXt stack -> final LayerNorm.  ``fused`` as in
     ``convnext_block``; ``dropout_generator``/``dropout_rate`` turn on the
-    pos-net resblocks' training dropout (``pos_resnet_block``)."""
-    x = backbone_stem(params, cfg, x, bandwidth_id, dropout_generator, dropout_rate)
+    pos-net resblocks' training dropout (``pos_resnet_block``); ``remat``
+    checkpoints each pos-net and ConvNeXt block (training, ``fused=False``)."""
+    x = backbone_stem(params, cfg, x, bandwidth_id, dropout_generator, dropout_rate, remat)
     for block in params["convnext"]:
-        x = convnext_block(block, x, cond_id=bandwidth_id, fused=fused)
+        x = checkpointed(convnext_block, block, x, bandwidth_id, fused, remat=remat)
     return layer_norm(x, params["final_layer_norm"]["weight"],
                       params["final_layer_norm"]["bias"])
 

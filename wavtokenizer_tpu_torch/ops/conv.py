@@ -1,8 +1,10 @@
-"""1-D convolutions, channel-last (B, T, C) at the function boundary.
+"""1-D convolutions, channel-last (B, T, C) at the function boundary, and
+the discriminators' 2-D convolution.
 
-Port of ``wavtokenizer_tpu/ops/conv.py``.  Activations enter and leave as
-(B, T, C), like the JAX functions; inside, ``F.conv1d`` runs on the
-channel-first view.  Weights are in PyTorch's layout with weight norm
+Port of ``wavtokenizer_tpu/ops/conv.py``.  Activations of the 1-D convs enter
+and leave as (B, T, C), like the JAX functions; inside, ``F.conv1d`` runs on
+the channel-first view.  ``conv2d`` keeps PyTorch's (B, C, H, W), the layout
+of the discriminators (``train/discriminators.py``).  Weights are in PyTorch's layout with weight norm
 already folded: (C_out, C_in/groups, K) for a conv, (C_in, C_out, K) for a
 transposed conv (``api/pretrained.py`` re-lays out the JAX kernels once, at
 model build).
@@ -63,3 +65,19 @@ def sconv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     h = pad1d(x.transpose(1, 2), pads, mode=pad_mode)
     return F.conv1d(h, weight, bias, stride=stride, dilation=dilation,
                     groups=groups).transpose(1, 2)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+           stride: tuple[int, int] = (1, 1),
+           padding: tuple[tuple[int, int], tuple[int, int]] = ((0, 0), (0, 0)),
+           dilation: tuple[int, int] = (1, 1), groups: int = 1) -> torch.Tensor:
+    """Zero-padded conv2d, x (B, C_in, H, W), weight (C_out, C_in/groups, Kh,
+    Kw), ``padding`` ((top, bottom), (left, right)) as the JAX function's
+    ``padding`` on (H, W); ``dilation`` spreads the taps (the MS-STFT
+    discriminator's dilated time axis)."""
+    (top, bottom), (left, right) = padding
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, stride=stride, padding=(top, left),
+                        dilation=dilation, groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride=stride,
+                    dilation=dilation, groups=groups)

@@ -27,7 +27,8 @@ Every wrapper dispatches on the device of its input: a CPU tensor goes to
 the plain PyTorch version beside it (``*_reference``, what the CPU tests
 run), a CUDA tensor to the kernel, anything else raises.  There is no
 fallback from the card to the plain version.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute, and the launches' work (the
+FLOPs of the function computed, ``utils/profiling.py``) in ``flops``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import types
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import convnext_flops, front_flops, vq_flops
 from .encoder_front import front_geometry_matches
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -233,11 +235,13 @@ def vq_nearest(x: torch.Tensor, embed: torch.Tensor, esq: torch.Tensor | None = 
     rc = lib.wt_vq_nearest(x.data_ptr(), pack.data_ptr(), esq.data_ptr(), keys.data_ptr(),
                            out.data_ptr(), N, C, D, _stream())
     vq_nearest.launches += 1
+    vq_nearest.flops += vq_flops(N, C, D)
     _check(rc, "vq_nearest")
     return out
 
 
 vq_nearest.launches = 0
+vq_nearest.flops = 0
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +319,12 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
                                  gamma.data_ptr(), x.data_ptr(),
                                  out.data_ptr(), M, I, C, s), "convnext gemm2")
     convnext_block.launches += 1
+    convnext_block.flops += convnext_flops(M, C, I)
     return out
 
 
 convnext_block.launches = 0
+convnext_block.flops = 0
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +372,24 @@ def encoder_front(audio: torch.Tensor, params: list, specs: list) -> torch.Tenso
                               pack["b"].data_ptr(), pack["wd"].data_ptr(),
                               pack["bd"].data_ptr(), out.data_ptr(), B, T, _stream())
     encoder_front.launches += 1
+    encoder_front.flops += front_flops(B * T)
     _check(rc, "encoder_front")
     return out
 
 
 encoder_front.launches = 0
+encoder_front.flops = 0
+
+WRAPPERS = (vq_nearest, convnext_block, encoder_front)
 
 
 def reset_launch_counts() -> None:
-    vq_nearest.launches = 0
-    convnext_block.launches = 0
-    encoder_front.launches = 0
+    """Every wrapper's launches and their work back to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+        w.flops = 0
+
+
+def launched_flops() -> int:
+    """The work of the kernel launches since the last reset."""
+    return sum(w.flops for w in WRAPPERS)

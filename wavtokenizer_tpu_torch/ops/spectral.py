@@ -78,21 +78,31 @@ def _window_envelope_np(n_fft: int, hop_length: int, win_length: int, T: int,
 def _istft(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
            hop_length: int, win_length: int, pad: int) -> torch.Tensor:
     """irfft of every frame, window, overlap-add, ``pad`` samples trimmed at
-    both ends, division by the squared-window envelope."""
+    both ends, division by the squared-window envelope.
+
+    A spectrum below fp32 (bf16: training's ``gen_compute_dtype``) is
+    transformed in fp32, which ``torch.fft`` needs, and the windowed frames
+    are rounded back to its type, where the JAX package's DFT matmul rounds
+    its fp32 sums (``preferred_element_type=float32``, then the input's
+    type): the overlap-add runs in that type, the envelope division in
+    fp32."""
     B, T, N = spec_real.shape
     if N != n_fft // 2 + 1:
         raise ValueError(f"{N} bins do not fit n_fft={n_fft}")
+    dtype = spec_real.dtype
+    work = torch.promote_types(dtype, torch.float32)
     # A real inverse DFT has no use for the imaginary parts of the DC and
     # (even n_fft) Nyquist bins: pocketfft on the CPU and the JAX package's
     # DFT matrix ignore them, cuFFT's C2R transform leaves the result
     # undefined (on the H100 it used them at some batch sizes).  Zero them.
-    keep = torch.ones(N, device=spec_imag.device)
+    keep = torch.ones(N, device=spec_imag.device, dtype=work)
     keep[0] = 0.0
     if n_fft % 2 == 0:
         keep[-1] = 0.0
-    frames = torch.fft.irfft(torch.complex(spec_real, spec_imag * keep), n=n_fft, dim=-1)
+    frames = torch.fft.irfft(torch.complex(spec_real.to(work), spec_imag.to(work) * keep),
+                             n=n_fft, dim=-1)
     window = torch.as_tensor(_padded_window(n_fft, win_length), device=frames.device)
-    y = overlap_add(frames * window, hop_length)
+    y = overlap_add((frames * window).to(dtype), hop_length)
     y = y[:, pad:y.shape[1] - pad]
     env = torch.as_tensor(_window_envelope_np(n_fft, hop_length, win_length, T, pad),
                           device=y.device)
@@ -123,7 +133,7 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
         win_length = n_fft
     if window is None:
         window = hann_window(win_length)
-    window = torch.as_tensor(np.asarray(window, np.float32), device=x.device)
+    window = torch.as_tensor(np.asarray(window, np.float32), device=x.device, dtype=x.dtype)
     spec = torch.stft(x, n_fft, hop_length, win_length, window, center=center,
                       pad_mode="reflect", onesided=True, return_complex=True)
     return spec.transpose(1, 2)
@@ -157,7 +167,8 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
                     hop_length: int, n_mels: int, center: bool = True) -> torch.Tensor:
     """Magnitude mel spectrogram of (B, L) -> (B, n_mels, T), torchaudio's."""
     mag = stft(x, n_fft, hop_length, center=center).abs()
-    fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels), device=x.device)
+    fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels), device=x.device,
+                         dtype=mag.dtype)
     return torch.einsum("btf,fm->bmt", mag, fb)
 
 

@@ -6,9 +6,8 @@ in training, -3 dB in validation) -> resample to the target rate ->
 repeat-pad or random crop to num_samples.  The same numpy draws as the JAX
 package's Python loader, so one seed gives both the same batches.  Files are
 read by ``utils/audio.py::read_audio`` and resampled by ``resample_np``.
-The JAX package's C++ loader (``native/``, whose thread count is the
-config's ``num_workers``) is not ported; this is the trainer's loader, and
-it reads no ``num_workers``.
+The trainer runs it where the C++ loader (``native/``, whose thread count is
+``num_workers``) cannot: a file that is not a ``.wav``, or no ``g++``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ class DataConfig:
     sampling_rate: int = 24000
     num_samples: int = 72000
     batch_size: int = 40
+    num_workers: int = 0
 
 
 def sox_norm(y: np.ndarray, gain_db: float) -> np.ndarray:

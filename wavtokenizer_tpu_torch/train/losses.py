@@ -4,10 +4,14 @@ Port of ``wavtokenizer_tpu/train/losses.py``.  The list-level primitives
 (``hinge_*``, ``feature_matching_loss``, ``dac_*_loss``) work on scores and
 feature maps already computed.  The per-family losses the step calls
 (``vocos_disc_loss``, ``vocos_gen_loss``, ``dac_disc_loss``,
-``dac_gen_loss``) give the values of the JAX package's ``*_fused`` functions,
-built, like them, from the primitives sub-discriminator by
-sub-discriminator.  JAX fuses them to set its rematerialization boundaries;
-here they are plain functions.
+``dac_gen_loss``) are the JAX package's ``*_fused`` functions: the same
+values, built from the primitives sub-discriminator by sub-discriminator,
+with the same rematerialization boundaries under ``remat``
+(``ops/remat.py``): each scalar term of a sub-discriminator in its own
+checkpoint (the real and fake hinge or least-squares terms apart in the
+discriminator phase, together in the generator phase), the DAC MRDs band
+by band.  ``compute_dtype`` runs the conv stacks in that type
+(``train/discriminators.py``); the loss arithmetic is fp32 (or wider).
 
 The generator-phase losses run the discriminators on the real audio under
 ``torch.no_grad``: no gradient reaches the generator through the real
@@ -21,9 +25,11 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.remat import checkpointed
 from ..ops.spectral import mel_spectrogram, safe_log
 from .discriminators import (DAC_FFT_SIZES, DAC_PERIODS, VOCOS_MPD_PERIODS,
-                             VOCOS_MRD_RESOLUTIONS, _dac_mpd, _dac_mrd,
+                             VOCOS_MRD_RESOLUTIONS, _dac_mpd, _dac_mrd_band,
+                             _dac_mrd_band_slices, _dac_mrd_post, _dac_mrd_spectrogram,
                              _dac_preprocess, dac_discriminator, discriminator_p,
                              discriminator_r)
 
@@ -97,70 +103,134 @@ def dac_generator_loss(disc_params: dict, fake: torch.Tensor, real: torch.Tensor
 # Per-family losses, as the step wires them (ref experiment.py:125-218)
 # --------------------------------------------------------------------------
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A discriminator output in the loss arithmetic's type: fp32, or wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _vocos_subs(params: list, family: str) -> list:
     if family == "mpd":
-        return [(p, lambda p, x, bw, per=per: discriminator_p(p, per, x, bw))
+        return [(p, lambda p, x, bw, dt, per=per: discriminator_p(p, per, x, bw, dt))
                 for p, per in zip(params, VOCOS_MPD_PERIODS)]
-    return [(p, lambda p, x, bw, res=res: discriminator_r(p, res, x, bw))
+    return [(p, lambda p, x, bw, dt, res=res: discriminator_r(p, res, x, bw, dt))
             for p, res in zip(params, VOCOS_MRD_RESOLUTIONS)]
 
 
 def vocos_disc_loss(params: list, family: str, y: torch.Tensor, y_hat: torch.Tensor,
-                    bandwidth_id=None) -> torch.Tensor:
+                    bandwidth_id=None, remat: bool = False,
+                    compute_dtype=None) -> torch.Tensor:
     """Discriminator-phase hinge loss of one Vocos family ("mpd" or "mrd"),
-    divided by its sub-discriminator count (experiment.py:140-148); the
-    value of JAX's ``vocos_disc_loss_fused``."""
+    divided by its sub-discriminator count (experiment.py:140-148); JAX's
+    ``vocos_disc_loss_fused``."""
+    def real_term(p, y, fwd):
+        r, _ = fwd(p, y, bandwidth_id, compute_dtype)
+        return torch.clamp(1.0 - _wide(r), min=0.0).mean()
+
+    def fake_term(p, y_hat, fwd):
+        g, _ = fwd(p, y_hat, bandwidth_id, compute_dtype)
+        return torch.clamp(1.0 + _wide(g), min=0.0).mean()
+
     subs = _vocos_subs(params, family)
     total = 0.0
     for p, fwd in subs:
-        r, _ = fwd(p, y, bandwidth_id)
-        g, _ = fwd(p, y_hat, bandwidth_id)
-        total = total + hinge_discriminator_loss([r], [g])
+        total = total + checkpointed(real_term, p, y, fwd, remat=remat)
+        total = total + checkpointed(fake_term, p, y_hat, fwd, remat=remat)
     return total / len(subs)
 
 
 def vocos_gen_loss(params: list, family: str, y: torch.Tensor, y_hat: torch.Tensor,
-                   bandwidth_id=None) -> tuple:
+                   bandwidth_id=None, remat: bool = False, compute_dtype=None) -> tuple:
     """Generator-phase (hinge, feature matching) of one Vocos family, each
-    divided by the sub-discriminator count (experiment.py:164-171); the
-    values of JAX's ``vocos_gen_loss_fused``."""
+    divided by the sub-discriminator count (experiment.py:164-171); JAX's
+    ``vocos_gen_loss_fused``."""
+    def one(p, y_hat, fwd):
+        out, fmap_g = fwd(p, y_hat, bandwidth_id, compute_dtype)
+        with torch.no_grad():
+            _, fmap_r = fwd(p, y, bandwidth_id, compute_dtype)
+        return (hinge_generator_loss([_wide(out)]),
+                feature_matching_loss([[_wide(a) for a in fmap_r]],
+                                      [[_wide(a) for a in fmap_g]]))
+
     subs = _vocos_subs(params, family)
     total_g, total_fm = 0.0, 0.0
     for p, fwd in subs:
-        out, fmap_g = fwd(p, y_hat, bandwidth_id)
-        with torch.no_grad():
-            _, fmap_r = fwd(p, y, bandwidth_id)
-        total_g = total_g + hinge_generator_loss([out])
-        total_fm = total_fm + feature_matching_loss([fmap_r], [fmap_g])
+        lg, lfm = checkpointed(one, p, y_hat, fwd, remat=remat)
+        total_g, total_fm = total_g + lg, total_fm + lfm
     return total_g / len(subs), total_fm / len(subs)
 
 
-def _dac_subs(disc_params: dict) -> list:
-    return ([lambda x, p=p, per=per: _dac_mpd(p, per, x)
-             for p, per in zip(disc_params["dac_mpd"], DAC_PERIODS)]
-            + [lambda x, p=p, n=n: _dac_mrd(p, n, x)
-               for p, n in zip(disc_params["dac_mrd"], DAC_FFT_SIZES)])
+def _dac_mrd_out(p: dict, n_fft: int, x: torch.Tensor, remat: bool, compute_dtype,
+                 real: torch.Tensor | None = None) -> tuple:
+    """One DAC MRD's conv_post output, each band's stack in its own
+    checkpoint; with ``real``, also the sum over the bands of the feature L1
+    against the real audio's maps (JAX's ``_dac_mrd_conv_post``)."""
+    spec = _dac_mrd_spectrogram(x, n_fft)
+    spec_r = None if real is None else _dac_mrd_spectrogram(real, n_fft)
+
+    def band(stack, s):
+        return _dac_mrd_band(stack, s, compute_dtype)[-1]
+
+    def band_pair(stack, s, sr):
+        fmap = _dac_mrd_band(stack, s, compute_dtype)
+        with torch.no_grad():
+            fmap_r = _dac_mrd_band(stack, sr, compute_dtype)
+        l1 = sum((_wide(a) - _wide(b)).abs().mean() for a, b in zip(fmap, fmap_r))
+        return l1, fmap[-1]
+
+    outs, l1 = [], 0.0
+    for (lo, hi), stack in zip(_dac_mrd_band_slices(n_fft), p["bands"]):
+        if spec_r is None:
+            outs.append(checkpointed(band, stack, spec[..., lo:hi], remat=remat))
+        else:
+            lf, out = checkpointed(band_pair, stack, spec[..., lo:hi], spec_r[..., lo:hi],
+                                   remat=remat)
+            outs.append(out)
+            l1 = l1 + lf
+    return _dac_mrd_post(p["conv_post"], outs, compute_dtype), l1
 
 
-def dac_disc_loss(disc_params: dict, fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+def dac_disc_loss(disc_params: dict, fake: torch.Tensor, real: torch.Tensor,
+                  remat: bool = False, compute_dtype=None) -> torch.Tensor:
     """= ``dac_discriminator_loss``, sub-discriminator by sub-discriminator
-    (the value of JAX's ``dac_disc_loss_fused``)."""
+    (JAX's ``dac_disc_loss_fused``)."""
     fake, real = _dac_preprocess(fake), _dac_preprocess(real)
+
+    def mpd_fake(p, x, period):
+        return (_wide(_dac_mpd(p, period, x, compute_dtype)[-1]) ** 2).mean()
+
+    def mpd_real(p, x, period):
+        return ((1.0 - _wide(_dac_mpd(p, period, x, compute_dtype)[-1])) ** 2).mean()
+
     loss = 0.0
-    for fwd in _dac_subs(disc_params):
-        loss = loss + _ls_disc_terms([fwd(fake)], [fwd(real)])
+    for p, period in zip(disc_params["dac_mpd"], DAC_PERIODS):
+        loss = loss + checkpointed(mpd_fake, p, fake, period, remat=remat)
+        loss = loss + checkpointed(mpd_real, p, real, period, remat=remat)
+    for p, n_fft in zip(disc_params["dac_mrd"], DAC_FFT_SIZES):
+        out_f = _wide(_dac_mrd_out(p, n_fft, fake, remat, compute_dtype)[0])
+        out_r = _wide(_dac_mrd_out(p, n_fft, real, remat, compute_dtype)[0])
+        loss = loss + (out_f ** 2).mean() + ((1.0 - out_r) ** 2).mean()
     return loss
 
 
-def dac_gen_loss(disc_params: dict, fake: torch.Tensor, real: torch.Tensor) -> tuple:
+def dac_gen_loss(disc_params: dict, fake: torch.Tensor, real: torch.Tensor,
+                 remat: bool = False, compute_dtype=None) -> tuple:
     """= ``dac_generator_loss``, sub-discriminator by sub-discriminator
-    (the values of JAX's ``dac_gen_loss_fused``): (loss_g, loss_feature)."""
+    (JAX's ``dac_gen_loss_fused``): (loss_g, loss_feature)."""
     fake, real = _dac_preprocess(fake), _dac_preprocess(real)
-    loss_g, loss_feature = 0.0, 0.0
-    for fwd in _dac_subs(disc_params):
-        d_fake = fwd(fake)
+
+    def mpd_pair(p, fake, period):
+        fmap = _dac_mpd(p, period, fake, compute_dtype)
         with torch.no_grad():
-            d_real = fwd(real)
-        lg, lf = _ls_gen_terms([d_fake], [d_real])
+            fmap_r = _dac_mpd(p, period, real, compute_dtype)
+        lf = sum((_wide(a) - _wide(b)).abs().mean() for a, b in zip(fmap[:-1], fmap_r[:-1]))
+        return ((1.0 - _wide(fmap[-1])) ** 2).mean(), lf
+
+    loss_g, loss_feature = 0.0, 0.0
+    for p, period in zip(disc_params["dac_mpd"], DAC_PERIODS):
+        lg, lf = checkpointed(mpd_pair, p, fake, period, remat=remat)
         loss_g, loss_feature = loss_g + lg, loss_feature + lf
+    for p, n_fft in zip(disc_params["dac_mrd"], DAC_FFT_SIZES):
+        out_f, lf = _dac_mrd_out(p, n_fft, fake, remat, compute_dtype, real=real)
+        loss_g = loss_g + ((1.0 - _wide(out_f)) ** 2).mean()
+        loss_feature = loss_feature + lf
     return loss_g, loss_feature

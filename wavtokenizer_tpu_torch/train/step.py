@@ -11,9 +11,16 @@ bandwidth_id per step, and the VQ EMA state advancing in BOTH forwards.
   codebooks are carried (experiment.py:92-96).  Weight decay applies to
   every optimized tensor, as optax's ``adamw`` decays every leaf.
 * The weight-normed convs train as (v, g) (``train/wnorm.py``); the
-  backbone's ConvNeXt blocks run plain in fp32 (``fused=False``: the kernel
-  has no backward); the encoder runs every layer plainly (no front kernel);
-  the VQ's nearest-code searches run in the VQ kernel on the card.
+  backbone's ConvNeXt blocks run plain (``fused=False``: the kernel has no
+  backward); the encoder runs every layer plainly (no front kernel); the
+  VQ's nearest-code searches run in the VQ kernel on the card.
+* ``remat`` checkpoints the encoder layers, the pos-net and ConvNeXt blocks
+  and each sub-discriminator's scalar loss (``ops/remat.py``) at the JAX
+  package's boundaries; the VQ's training forward (k-means, the EMA update,
+  its searches) stays outside every checkpoint, so nothing of it runs twice.
+  ``disc_compute_dtype``/``gen_compute_dtype`` run the discriminators'
+  conv stacks and the decode side (backbone and head) in bf16; the encoder
+  and the VQ are never cast, so the codes do not depend on them.
 * ``torch.optim.AdamW`` computes optax's ``adamw`` update (eps outside the
   square root of the bias-corrected second moment, decay p - lr * wd * p).
   The LR is the schedule read at the update count before the update: each
@@ -31,10 +38,6 @@ bandwidth_id, the seeds of the two dropout generators (on the audio's
 device) and k-means' sample indices, in that order.  JAX draws from its own
 keys, so the two packages agree only where the draws do not matter or are
 passed in: a given ``bandwidth_id``, an inited codebook, no dropout.
-
-Left out of ``TrainConfig``, with what they select: remat
-(``remat``/``remat_encoder``/``remat_disc``) and the bf16 compute dtypes
-(``disc_compute_dtype``/``gen_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..models.init import init_wavtokenizer
 from ..models.seanet import encoder_layer_specs, seanet_encode
 from ..models.vocos import istft_head, vocos_backbone
 from ..models.wavtokenizer import WavTokenizerSpec
-from .discriminators import init_discriminators
+from .discriminators import cast_floats, init_discriminators
 from .losses import dac_disc_loss, dac_gen_loss, mel_loss, vocos_disc_loss, vocos_gen_loss
 from .vq_train import vq_train_forward
 from .wnorm import fold_tree, seanet_to_weight_norm
@@ -71,6 +74,17 @@ class TrainConfig:
     max_steps: int = 2_000_000
     num_bandwidths: int = 4
     weight_decay: float = 0.01  # torch AdamW default
+    # Rematerialization: the backward recomputes the activations of the
+    # encoder layers (with remat_encoder), the pos-net and ConvNeXt blocks,
+    # and of each sub-discriminator's scalar loss (by remat_disc: True, False
+    # stores every family's activations, "store_dac" stores only the DAC
+    # family's), instead of keeping them.  It changes memory and time, never
+    # values.  The JAX package defaults it on to fit its 16 GB chip; an
+    # 80 GB H100 holds the reference batch (40 x 3 s) without it, so it is
+    # off here.
+    remat: bool = False
+    remat_encoder: bool = True
+    remat_disc: bool | str = True
     # Training-time dropout inside the backbone pos-net resblocks (the
     # reference trains with 0.1, decoder/models.py:200).
     pos_dropout: float = 0.1
@@ -85,6 +99,34 @@ class TrainConfig:
     # tests and smoke runs shrink it and keep every family, period,
     # resolution and band.
     disc_channels_scale: float = 1.0
+    # Mixed precision (the reference trains fp32, the default): the
+    # discriminators' conv stacks, and the decode side (backbone and ISTFT
+    # head), in this type.  Parameters, the weight-norm folds, the loss
+    # arithmetic, gradients and AdamW stay fp32; the encoder and the VQ are
+    # never cast.
+    disc_compute_dtype: str = "float32"
+    gen_compute_dtype: str = "float32"
+
+
+def compute_dtype(name: str) -> torch.dtype | None:
+    """A compute type by name: None for "float32" (nothing is cast), else
+    the torch floating type; a name that is no floating type raises
+    ``ValueError``."""
+    if name == "float32":
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute dtype {name!r} is not a floating type")
+    return dtype
+
+
+def disc_remat_mode(remat: bool, remat_disc) -> bool | str:
+    """``remat_disc`` under the global ``remat``: False stores every
+    family's activations, True rematerializes every family, "store_dac"
+    stores the DAC family's and rematerializes MPD and MRD."""
+    if not remat or remat_disc is False:
+        return False
+    return "store_dac" if remat_disc == "store_dac" else True
 
 
 def tree_leaves(tree) -> list:
@@ -182,43 +224,63 @@ def create_train_state(spec: WavTokenizerSpec, tcfg: TrainConfig, seed: int = 0,
 def generator_forward(gen: dict, vq: dict, spec: WavTokenizerSpec, audio: torch.Tensor,
                       bandwidth_id: int, n_q: int, generator: torch.Generator | None = None,
                       dropout_generator: torch.Generator | None = None,
-                      dropout_rate: float = 0.0):
+                      dropout_rate: float = 0.0, remat: bool = False,
+                      remat_encoder: bool | None = None, compute_dtype=None):
     """Training forward: encoder -> VQ (train) -> backbone -> head (ref
     experiment.py:114-119 via feature_extractors.py:105-119).  audio (B, T)
-    -> (audio_hat (B, T), commit loss, new VQ state)."""
+    -> (audio_hat (B, T), commit loss, new VQ state).
+
+    ``remat`` checkpoints the backbone's blocks and, unless
+    ``remat_encoder`` is False, the encoder's layers; the VQ runs outside
+    every checkpoint.  ``compute_dtype`` runs the backbone and head in that
+    type (their weights and the quantized input cast); audio_hat comes back
+    in the audio's type."""
     enc = fold_tree(gen["encoder"])
-    emb = seanet_encode(enc, spec.seanet, audio[:, :, None], front=False)
+    remat_enc = remat if remat_encoder is None else (remat and remat_encoder)
+    emb = seanet_encode(enc, spec.seanet, audio[:, :, None], front=False, remat=remat_enc)
     quantized, _, commit, new_vq = vq_train_forward(vq, spec.vq, emb, n_q, generator)
-    h = vocos_backbone(gen["backbone"], spec.backbone, quantized, bandwidth_id=bandwidth_id,
+    backbone, head = gen["backbone"], gen["head"]
+    if compute_dtype is not None:
+        backbone, head = cast_floats(backbone, compute_dtype), cast_floats(head, compute_dtype)
+        quantized = quantized.to(compute_dtype)
+    h = vocos_backbone(backbone, spec.backbone, quantized, bandwidth_id=bandwidth_id,
                        fused=False, dropout_generator=dropout_generator,
-                       dropout_rate=dropout_rate)
-    return istft_head(gen["head"], spec.head, h), commit, new_vq
+                       dropout_rate=dropout_rate, remat=remat)
+    return istft_head(head, spec.head, h).to(audio.dtype), commit, new_vq
 
 
-def _disc_loss_fn(disc: dict, audio_hat, audio, bandwidth_id: int, mrd_coeff: float):
-    """ref experiment.py:125-148."""
-    loss_dac = dac_disc_loss(disc, audio_hat, audio)
-    loss_mp = vocos_disc_loss(disc["mpd"], "mpd", audio, audio_hat, bandwidth_id)
-    loss_mrd = vocos_disc_loss(disc["mrd"], "mrd", audio, audio_hat, bandwidth_id)
+def _disc_loss_fn(disc: dict, audio_hat, audio, bandwidth_id: int, mrd_coeff: float,
+                  remat=False, compute_dtype=None):
+    """ref experiment.py:125-148; ``remat`` is ``disc_remat_mode``'s."""
+    loss_dac = dac_disc_loss(disc, audio_hat, audio, remat is True, compute_dtype)
+    loss_mp = vocos_disc_loss(disc["mpd"], "mpd", audio, audio_hat, bandwidth_id,
+                              bool(remat), compute_dtype)
+    loss_mrd = vocos_disc_loss(disc["mrd"], "mrd", audio, audio_hat, bandwidth_id,
+                               bool(remat), compute_dtype)
     loss = loss_mp + mrd_coeff * loss_mrd + loss_dac
     return loss, {"disc_total": loss, "disc_mp": loss_mp, "disc_mrd": loss_mrd,
                   "disc_dac": loss_dac}
 
 
-def _gen_loss_fn(gen, disc, vq, spec, audio, bandwidth_id, n_q, mel_coeff, mrd_coeff,
-                 train_discriminator, generator, dropout_generator, dropout_rate):
+def _gen_loss_fn(gen, disc, vq, spec, tcfg, audio, bandwidth_id, n_q, mel_coeff,
+                 train_discriminator, generator, dropout_generator):
     """ref experiment.py:151-218."""
     audio_hat, commit_loss, new_vq = generator_forward(
-        gen, vq, spec, audio, bandwidth_id, n_q, generator, dropout_generator, dropout_rate)
+        gen, vq, spec, audio, bandwidth_id, n_q, generator, dropout_generator,
+        tcfg.pos_dropout, tcfg.remat, tcfg.remat_encoder, compute_dtype(tcfg.gen_compute_dtype))
     l_mel = mel_loss(audio_hat, audio, spec.sample_rate)
     metrics = {"mel_loss": l_mel, "commit_loss": commit_loss}
     loss = mel_coeff * l_mel + 1000.0 * commit_loss
     if train_discriminator:
-        dac_g, dac_feat = dac_gen_loss(disc, audio_hat, audio)
-        gen_mp, fm_mp = vocos_gen_loss(disc["mpd"], "mpd", audio, audio_hat, bandwidth_id)
-        gen_mrd, fm_mrd = vocos_gen_loss(disc["mrd"], "mrd", audio, audio_hat, bandwidth_id)
-        loss = (loss + gen_mp + mrd_coeff * gen_mrd + fm_mp + mrd_coeff * fm_mrd
-                + dac_g + dac_feat)
+        remat = disc_remat_mode(tcfg.remat, tcfg.remat_disc)
+        dt = compute_dtype(tcfg.disc_compute_dtype)
+        dac_g, dac_feat = dac_gen_loss(disc, audio_hat, audio, remat is True, dt)
+        gen_mp, fm_mp = vocos_gen_loss(disc["mpd"], "mpd", audio, audio_hat, bandwidth_id,
+                                       bool(remat), dt)
+        gen_mrd, fm_mrd = vocos_gen_loss(disc["mrd"], "mrd", audio, audio_hat, bandwidth_id,
+                                         bool(remat), dt)
+        c = tcfg.mrd_loss_coeff
+        loss = loss + gen_mp + c * gen_mrd + fm_mp + c * fm_mrd + dac_g + dac_feat
         metrics.update({"gen_mp": gen_mp, "gen_mrd": gen_mrd, "fm_mp": fm_mp,
                         "fm_mrd": fm_mrd, "dac_gen": dac_g, "dac_feat": dac_feat})
     metrics["gen_total"] = loss
@@ -255,9 +317,11 @@ def discriminator_phase(state: dict, audio: torch.Tensor, spec: WavTokenizerSpec
     with torch.no_grad():
         audio_hat, _, vq = generator_forward(state["gen"], state["vq"], spec, audio,
                                              bandwidth_id, n_q, generator, dropout_generator,
-                                             tcfg.pos_dropout)
+                                             tcfg.pos_dropout,
+                                             compute_dtype=compute_dtype(tcfg.gen_compute_dtype))
     loss, metrics = _disc_loss_fn(state["disc"], audio_hat, audio, bandwidth_id,
-                                  tcfg.mrd_loss_coeff)
+                                  tcfg.mrd_loss_coeff, disc_remat_mode(tcfg.remat, tcfg.remat_disc),
+                                  compute_dtype(tcfg.disc_compute_dtype))
     _backward(loss, state["opt_disc"])
     state["opt_disc"].step()
     state["sched_disc"].step()
@@ -282,9 +346,8 @@ def generator_phase(state: dict, vq: dict, audio: torch.Tensor, spec: WavTokeniz
         p.requires_grad_(False)
     try:
         loss, metrics, new_vq = _gen_loss_fn(
-            state["gen"], state["disc"], vq, spec, audio, bandwidth_id, n_q, mel_coeff,
-            tcfg.mrd_loss_coeff, train_discriminator, generator, dropout_generator,
-            tcfg.pos_dropout)
+            state["gen"], state["disc"], vq, spec, tcfg, audio, bandwidth_id, n_q, mel_coeff,
+            train_discriminator, generator, dropout_generator)
         grads = _backward(loss, state["opt_gen"])
     finally:
         for p in disc_params:

@@ -34,9 +34,9 @@ from ..models.wavtokenizer import WavTokenizerSpec
 from .data import DataConfig, WavDataset, data_loader
 from .helpers import TBLogger
 from .losses import mel_loss
-from .step import (TrainConfig, create_train_state, generator_forward, generator_from_jax,
-                   mel_coeff_decay, new_train_state, state_to_inference_params, to_tensors,
-                   train_step, tree_leaves, tree_map)
+from .step import (TrainConfig, compute_dtype, create_train_state, generator_forward,
+                   generator_from_jax, mel_coeff_decay, new_train_state,
+                   state_to_inference_params, to_tensors, train_step, tree_leaves, tree_map)
 
 
 def train_config_from_yaml(config: dict) -> tuple:
@@ -44,16 +44,18 @@ def train_config_from_yaml(config: dict) -> tuple:
     val data).
 
     The evaluate_* keys switch validation's evaluators, the reference's
-    misspelt ``evaluate_periodicty`` first.  The JAX package's
-    ``disc_compute_dtype`` is not ported, and a YAML that sets it to anything
-    but float32 is refused.  ``num_workers`` is not
-    read: the loader is one process and yields the same batches."""
+    misspelt ``evaluate_periodicty`` first.  ``disc_compute_dtype`` (a key of
+    the JAX package, absent from the reference's YAMLs) runs the
+    discriminators in that type (``TrainConfig``); a name that is no
+    floating type is refused with a ``ValueError``.  ``num_workers`` is the
+    native loader's thread count (at least 2)."""
     spec = spec_from_config_dict(config)
     init = config.get("model", {}).get("init_args", {})
     disc_dtype = str(init.get("disc_compute_dtype", "float32"))
-    if disc_dtype != "float32":
-        raise ValueError(f"disc_compute_dtype={disc_dtype!r} is not supported: "
-                         "the discriminators train in float32 only")
+    try:
+        compute_dtype(disc_dtype)
+    except ValueError as e:
+        raise ValueError(f"disc_compute_dtype: {e}") from None
     trainer = config.get("trainer", {})
     tcfg = TrainConfig(
         sample_rate=int(init.get("sample_rate", 24000)),
@@ -70,7 +72,8 @@ def train_config_from_yaml(config: dict) -> tuple:
         evaluate_pesq=bool(init.get("evaluate_pesq", True)),
         # the reference YAML key keeps the upstream typo "periodicty"
         evaluate_periodicity=bool(init.get("evaluate_periodicty",
-                                           init.get("evaluate_periodicity", True))))
+                                           init.get("evaluate_periodicity", True))),
+        disc_compute_dtype=disc_dtype)
 
     def data_cfg(block):
         if not block:
@@ -78,7 +81,8 @@ def train_config_from_yaml(config: dict) -> tuple:
         return DataConfig(filelist_path=block["filelist_path"],
                           sampling_rate=int(block.get("sampling_rate", 24000)),
                           num_samples=int(block.get("num_samples", 72000)),
-                          batch_size=int(block.get("batch_size", 40)))
+                          batch_size=int(block.get("batch_size", 40)),
+                          num_workers=int(block.get("num_workers", 0)))
 
     data = config.get("data", {}).get("init_args", {})
     return spec, tcfg, data_cfg(data.get("train_params")), data_cfg(data.get("val_params"))
@@ -317,6 +321,34 @@ class Trainer:
         self.log({"event": "resume", "path": path, "step": state["step"]})
         return state
 
+    def _make_train_iter(self, skip_batches: int = 0):
+        """The training batches: the native loader (``native/``) when every
+        file is a ``.wav`` and the library builds, the Python loader
+        otherwise; both decode, normalize, resample and crop alike (ref
+        decoder/dataset.py:44-84), with their own draws.  ``skip_batches``
+        starts the stream at the batch an interrupted run would have read
+        next, without decoding the ones before it."""
+        cfg = self.train_data
+        with open(cfg.filelist_path) as f:
+            files = [l for l in f.read().splitlines() if l.strip()]
+        if all(p.endswith(".wav") for p in files):
+            from ..native import NativeDataLoader
+            try:
+                # drop_last=False: the reference trains on the last, short
+                # batch (torch's DataLoader default); the loader repeat-pads it.
+                loader = NativeDataLoader(
+                    files, sample_rate=cfg.sampling_rate, num_samples=cfg.num_samples,
+                    batch_size=cfg.batch_size, train=True,
+                    num_threads=max(2, cfg.num_workers), seed=self.seed,
+                    start_seq=skip_batches, drop_last=False)
+            except (OSError, RuntimeError) as e:     # no g++, or it failed
+                self.log({"event": "native_loader_unavailable", "error": str(e)})
+            else:
+                self.log({"event": "native_loader", "files": len(files)})
+                return iter(loader)
+        return data_loader(WavDataset(cfg, train=True), cfg.batch_size, shuffle=True,
+                           seed=self.seed, drop_last=False, skip_batches=skip_batches)
+
     def _pad_batch(self, batch: np.ndarray) -> np.ndarray:
         """Repeat-pad an underfull last batch to the batch size: the
         reference trains on the full last batch (drop_last=False)."""
@@ -336,9 +368,7 @@ class Trainer:
         start = state["step"]
         # A resumed run's loader starts at the batch the interrupted run
         # would have read next.
-        train_iter = data_loader(WavDataset(self.train_data, train=True),
-                                 self.train_data.batch_size, shuffle=True, seed=self.seed,
-                                 drop_last=False, skip_batches=start)
+        train_iter = self._make_train_iter(skip_batches=start)
         val_iter = None
         if self.val_data is not None:
             val_iter = data_loader(WavDataset(self.val_data, train=False),

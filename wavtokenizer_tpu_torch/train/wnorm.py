@@ -11,9 +11,9 @@ weight, its first axis the one torch's ``weight_norm(dim=0)`` keeps (C_out
 for a conv, C_in for a transposed conv), and g has that axis' extent and 1
 elsewhere, e.g. v (C_out, C_in, K) and g (C_out, 1, 1) for a Conv1d, v
 (C_out, C_in, Kh, Kw) and g (C_out, 1, 1, 1) for a Conv2d.  The norm runs
-over every axis but the first, so one rule serves every kind of conv
-(``weight_norm_conv`` is the JAX package's ``weight_norm_conv`` and
-``weight_norm_conv2d`` in one).
+over every axis but the first, so one rule serves every kind of conv:
+``weight_norm_conv`` is the JAX package's ``weight_norm_conv`` and
+``weight_norm_conv2d`` in one, and ``weight_norm_conv2d`` is its Conv2d name.
 """
 
 from __future__ import annotations
@@ -51,6 +51,11 @@ def weight_norm_conv(params: dict) -> dict:
     if params.get("bias") is not None:
         out["bias"] = params["bias"]
     return out
+
+
+# A Conv2d weight (C_out, C_in, Kh, Kw) folds over (C_in, Kh, Kw), the same
+# rule: the JAX package's name for it.
+weight_norm_conv2d = weight_norm_conv
 
 
 def seanet_to_weight_norm(params: list, specs) -> list:
