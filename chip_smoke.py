@@ -67,6 +67,16 @@ against the plain versions; the MS-STFT discriminator card against CPU.
 The card's peaks and the kernels' bounds come from
 wavtokenizer_tpu_torch/utils/profiling.py.
 
+Then the multi-card paths ([17]) on this one card: one step of the
+small-320 YAML through an in-process NCCL group of one rank against the
+plain step (collectives counted); two spawned ranks over gloo sharing the
+card, 4 rows each of an 8 x 3 s batch from an un-inited codebook (k-means
+on the gathered samples, the VQ kernel in both ranks) against the
+one-process step; the data-parallel engine with two replicas on the card
+and tools/extract_features.py with two against one; and the ConvNeXt
+kernel on 2 and 4 tensor-parallel slices of its hidden width, summed
+against the whole kernel and the plain block, and timed.
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -81,6 +91,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1559,11 +1570,16 @@ def _write_loader_wavs(d: str, n: int) -> list:
 
 
 def _copy_state(S, state: dict, tcfg) -> dict:
-    """A copy of a train state: its trees, optimizers and schedules."""
+    """A copy of a train state: its trees, optimizers and schedules.  The
+    optimizers' state dicts are deep-copied: ``load_state_dict`` keeps the
+    given moment tensors when their type and device already fit, so a step
+    of the copy would otherwise move the original's moments too."""
+    import copy
+
     st = S.new_train_state(state["gen"], state["disc"], state["vq"], state["decoder"], tcfg,
                            state["step"])
     for k in ("opt_gen", "opt_disc", "sched_gen", "sched_disc"):
-        st[k].load_state_dict(state[k].state_dict())
+        st[k].load_state_dict(copy.deepcopy(state[k].state_dict()))
     return st
 
 
@@ -1844,6 +1860,389 @@ def options_phase(K, rt_ms: float) -> dict:
     out["msstft_rel"] = max(rel_max(g.cpu(), w) for g, w in pairs)
     out["msstft_maps"] = len(pairs)
     check(out["msstft_rel"] <= 1e-4, f"msstft card vs CPU rel-max {out['msstft_rel']:.3g}")
+    return out
+
+
+# [17]: the multi-card paths, on the one card of this machine.  (a) NCCL in
+# a group of one rank; (b) two ranks over gloo, both on this card (NCCL
+# refuses two ranks on one device); (c) the data-parallel engine and
+# extraction with two replicas on this card; (d) the ConvNeXt kernel on
+# tensor-parallel slices of its hidden width.
+# (a): the step of a group of one against the plain step from one state,
+# with PyTorch's deterministic algorithms where they exist (cuDNN's, and
+# index_add_'s for the VQ statistics, which the generator phase reads).
+# Reflection padding's backward has none: its atomics stay, and AdamW turns
+# their rounding in near-zero gradients into moves of up to the learning
+# rate; so each quantity is held to 1e-6 relative or to 4x the plain step's
+# difference from its own repeat, whichever is larger.
+NCCL_STEP_TOL = 1e-6
+MULTI_B = 8                 # (b): the global batch, 4 rows a rank
+TP_SHARDS = (2, 4)          # (d): I = 2304 in slices of 1152 and 576
+EXTRACT_FILES = 5
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_yaml():
+    import yaml
+
+    from wavtokenizer_tpu_torch.train.trainer import train_config_from_yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TRAIN_CONFIG)) as f:
+        return train_config_from_yaml(yaml.safe_load(f))
+
+
+def _leaves_rel(a: dict, b: dict) -> float:
+    """Largest |a - b| over each leaf's largest |b|, across the trees."""
+    from wavtokenizer_tpu_torch.train.step import tree_leaves
+    with torch.no_grad():
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def _step_diff(a: tuple, b: tuple) -> dict:
+    """Relative differences of two (state, metrics) step results: the
+    metrics (largest), the gradient vectors of both optimizers (over their
+    norm), the weights and the VQ state (``_leaves_rel``)."""
+    (sa, ma), (sb, mb) = a, b
+    out = {"metrics": max(rel_err(float(ma[k]), float(v)) for k, v in mb.items())}
+    out["grads"] = max(float((_flat_grads(sa[k]) - _flat_grads(sb[k])).norm()
+                             / _flat_grads(sb[k]).norm()) for k in ("opt_gen", "opt_disc"))
+    out["weights"] = max(_leaves_rel(sa[k], sb[k]) for k in ("gen", "disc"))
+    out["vq"] = _leaves_rel(sa["vq"], sb["vq"])
+    return out
+
+
+def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
+    """(a) One step of the small-320 YAML (40 x 3 s, discriminators at full
+    width) through an in-process group of one rank (TCP rendezvous on a free
+    port) against the plain step, all from one state past its first step
+    (k-means done), and the plain step against its own repeat (the card's
+    floor); the collectives counted."""
+    import torch.distributed as dist
+
+    import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch.parallel import mesh as M
+    from wavtokenizer_tpu_torch.train.trainer import step_generator
+
+    spec, tcfg, data, _ = _train_yaml()
+    B, T = data.batch_size, data.num_samples
+    audio = torch.as_tensor((np.random.default_rng(17).normal(size=(B, T)) * 0.1)
+                            .astype(np.float32)).to(dev)
+    base = S.create_train_state(spec, tcfg, seed=0, device=dev)
+    S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
+    out = {"B": B, "T": T}
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # "... no deterministic ..."
+            plain = [S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
+                                  step_generator(0, 1), with_grad_norm=True) for _ in range(2)]
+            M.init_distributed(backend, dev, f"tcp://127.0.0.1:{_free_port()}", 0, 1)
+            try:
+                mesh = M.make_mesh(1, dev)
+                out["backend"] = dist.get_backend(mesh.data_group)
+                M.COLLECTIVES.clear()
+                K.reset_launch_counts()
+                state = M.shard_train_state(mesh, M.replicate_train_state(
+                    mesh, _copy_state(S, base, tcfg)))
+                shard = M.batch_shard(mesh, B)
+                dist_step = S.train_step(state, audio[shard.start:shard.stop], spec, tcfg,
+                                         step_generator(0, 1), with_grad_norm=True,
+                                         shard=shard)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                out["collectives"] = dict(M.COLLECTIVES)
+                out["launches"] = K.vq_nearest.launches
+                dist.barrier()
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    out["rel"] = _step_diff(dist_step, plain[0])
+    out["floor"] = _step_diff(plain[1], plain[0])
+    out["grad_norm"] = (float(dist_step[1]["grad_norm"]), float(plain[0][1]["grad_norm"]))
+    out["metrics"] = {k: float(v) for k, v in dist_step[1].items()}
+    check(out["backend"] == backend, f"the group's backend is {out['backend']}")
+    check(out["collectives"].get("all_reduce", 0) >= 5 and out["collectives"].get("broadcast"),
+          f"collectives of the distributed step: {out['collectives']}")
+    check(out["launches"] == 2, f"vq_nearest launches {out['launches']}, expected 2")
+    for k, v in out["rel"].items():
+        limit = max(NCCL_STEP_TOL, 4 * out["floor"][k])
+        check(v <= limit, f"NCCL step vs plain step: {k} {v:.3g} (limit {limit:.3g})")
+    return out
+
+
+def multi_step(mesh, dev: str = "cuda") -> dict:
+    """One step of the small-320 YAML's spec and config at full width on
+    the global batch of MULTI_B x 3 s, from an un-inited codebook (k-means
+    on the gathered samples): this rank's rows of it under ``mesh``, all of
+    it without.  Records k-means' samples and result."""
+    import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch.ops import kernels as K
+    from wavtokenizer_tpu_torch.parallel import mesh as M
+    from wavtokenizer_tpu_torch.train import vq_train
+    from wavtokenizer_tpu_torch.train.trainer import step_generator
+
+    spec, tcfg, data, _ = _train_yaml()
+    audio = torch.as_tensor((np.random.default_rng(18).normal(size=(MULTI_B, data.num_samples))
+                             * 0.1).astype(np.float32)).to(dev)
+    state = S.create_train_state(spec, tcfg, seed=0, device=dev)
+    real, km = vq_train.kmeans, {}
+
+    def recorded(samples, *a, **k):
+        means, bins, buckets = real(samples, *a, **k)
+        km.update(samples=samples.cpu(), means=means.cpu(), buckets=buckets.cpu())
+        return means, bins, buckets
+
+    vq_train.kmeans = recorded
+    try:
+        K.reset_launch_counts()
+        M.COLLECTIVES.clear()
+        shard = M.batch_shard(mesh, MULTI_B)
+        t0 = time.perf_counter()
+        _, m = S.train_step(state, audio[shard.start:shard.stop], spec, tcfg,
+                            step_generator(0, 0), with_grad_norm=True, shard=shard)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        vq_train.kmeans = real
+    return {"metrics": {k: float(v) for k, v in m.items()}, "launches": K.vq_nearest.launches,
+            "kmeans": km, "rows": (shard.start, shard.stop), "ms": ms,
+            "collectives": dict(M.COLLECTIVES),
+            "embed": state["vq"]["embed"].cpu()}
+
+
+def _gloo_rank(rank: int, port: int, out_dir: str, dev: str) -> None:
+    """(b) One of two ranks over gloo, both on this card."""
+    from wavtokenizer_tpu_torch.parallel import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M.init_distributed("gloo", f"{dev}:0" if dev == "cuda" else dev,
+                       f"tcp://127.0.0.1:{port}", rank, 2)
+    try:
+        res = multi_step(M.make_mesh(1, f"{dev}:0" if dev == "cuda" else dev), dev)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def gloo_two_ranks(dev: str = "cuda") -> dict:
+    """(b) Two spawned processes, 4 rows each, over gloo with CUDA tensors
+    (staged through host memory by ``parallel/mesh.py``), against the
+    one-process step on the global batch on the same card."""
+    import tempfile
+
+    spec = _train_yaml()[0]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_gloo_rank, args=(_free_port(), d, dev), nprocs=2)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    one = multi_step(None, dev)
+    out = {"spawn_s": spawn_s, "launches": [r["launches"] for r in ranks],
+           "rows": [r["rows"] for r in ranks], "ms": [r["ms"] for r in ranks],
+           "one_ms": one["ms"], "collectives": ranks[0]["collectives"]}
+    km = [r["kmeans"] for r in ranks]
+    out["samples_rel"] = rel_max(km[0]["samples"], one["kmeans"]["samples"])
+    check(torch.equal(km[0]["samples"], km[1]["samples"])
+          and torch.equal(km[0]["buckets"], km[1]["buckets"]),
+          "the two ranks' k-means saw other samples or found other codes")
+    out["n_rows"] = int(one["kmeans"]["buckets"].numel())
+    out["flips"] = int((km[0]["buckets"] != one["kmeans"]["buckets"]).sum())
+    out["gap"] = vq_distance_gap(one["kmeans"]["samples"], one["kmeans"]["means"],
+                                 km[0]["buckets"], one["kmeans"]["buckets"])
+    rels = {k: max(rel_err(r["metrics"][k], v) for r in ranks)
+            for k, v in one["metrics"].items()}
+    out["worst"] = max(rels, key=rels.get)
+    out["loss_rel"] = max(v for k, v in rels.items() if k != "grad_norm")
+    out["grad_norm_rel"] = rels["grad_norm"]
+    out["embed_rel"] = rel_max(ranks[0]["embed"], one["embed"])
+    out["metrics"] = ranks[0]["metrics"]
+    want = spec.vq.kmeans_iters + 2
+    check(out["launches"] == [want, want], f"vq_nearest launches per rank {out['launches']}, "
+          f"expected {want} each")
+    check(out["rows"] == [(0, MULTI_B // 2), (MULTI_B // 2, MULTI_B)], f"rows {out['rows']}")
+    check(out["loss_rel"] <= 1e-3, f"gloo step vs one process: {out['worst']} rel "
+          f"{out['loss_rel']:.3g}")
+    check(out["grad_norm_rel"] <= 1e-3, f"gloo step grad norm rel {out['grad_norm_rel']:.3g}")
+    return out
+
+
+def dp_engine_phase(model, params_np, spec, K, dev: str = "cuda") -> dict:
+    """(c) ServingEngine with two replicas on one card: 16 concurrent encode
+    requests, then 16 detokenize requests of their codes, against direct
+    calls, the launches counted per batch; then tools/extract_features.py as
+    subprocesses with one device and with two replicas of it on a ragged
+    file count."""
+    import tempfile
+    import threading
+
+    from scipy.io import wavfile
+
+    from wavtokenizer_tpu_torch.api.engine import EngineConfig, ServingEngine
+    from wavtokenizer_tpu_torch.checkpoint.export import (save_torch_checkpoint,
+                                                          wavtokenizer_state_dict)
+    from wavtokenizer_tpu_torch.utils.golden import max_flips
+
+    devices = [f"{dev}:0", f"{dev}:0"] if dev == "cuda" else [dev, dev]
+    T = int(TIMING_SECONDS * spec.sample_rate)
+    audio = (np.random.default_rng(19).normal(size=(16, T)) * 0.1).astype(np.float32)
+    feats_d, codes_d = model.encode_infer(audio)
+    wave_d = model.decode(model.codes_to_features(codes_d), 0).cpu().numpy()
+    codes_d = codes_d.cpu().numpy()[0]
+    out = {}
+    eng = ServingEngine(model, EngineConfig(batch_sizes=(2, 8), clip_seconds=(TIMING_SECONDS,),
+                                            max_wait_ms=20.0), devices=devices)
+    try:
+        check(len(eng.replicas) == 2 and eng.replicas.models[1] is not model,
+              "the engine does not hold two replicas")
+        K.reset_launch_counts()
+
+        def submit_all(op, payloads):
+            futs = [None] * len(payloads)
+
+            def one(i):
+                futs[i] = eng.submit(op, payloads[i])
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return [f.result(timeout=300) for f in futs]
+
+        t0 = time.perf_counter()
+        enc = submit_all("encode", list(audio))
+        b_enc = eng.stats.snapshot()["batches"]
+        got_codes = np.stack([c for _, c in enc])
+        wave = np.stack(submit_all("detokenize", list(got_codes)))
+        out["wall_s"] = time.perf_counter() - t0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        b_det = eng.stats.snapshot()["batches"] - b_enc
+        out["launches"] = launch_counts(K)
+        out["batches"] = (b_enc, b_det)
+    finally:
+        eng.close()
+    n_blocks = spec.backbone.num_layers
+    front = int("front" in model.params["encoder"][0])   # the front kernel serves it
+    want = {"vq_nearest": 2 * b_enc, "encoder_front": 2 * front * b_enc,
+            "convnext_block": 2 * n_blocks * b_det}
+    out["flips"] = int((got_codes != codes_d).sum())
+    out["n_ids"] = int(codes_d.size)
+    out["wave_rel"] = float(np.abs(wave - wave_d).max() / np.abs(wave_d).max())
+    check(out["launches"] == want, f"engine launches {out['launches']}, expected {want} "
+          f"(two replicas, {b_enc} encode and {b_det} detokenize batches)")
+    check(out["flips"] <= max_flips(out["n_ids"]), f"engine codes: {out['flips']} flips")
+    check(out["wave_rel"] <= SAME_CARD_WAVE_TOL, f"engine waveform rel {out['wave_rel']:.3g}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "model.ckpt")
+        save_torch_checkpoint(ckpt, wavtokenizer_state_dict(
+            params_np, spec.seanet, spec.backbone, head_n_fft=spec.head.n_fft))
+        wavs = os.path.join(d, "wavs")
+        os.makedirs(wavs)
+        for i in range(EXTRACT_FILES):
+            y = _speech_like(spec.sample_rate, T + 2400 * i, seed=40 + i)
+            wavfile.write(os.path.join(wavs, f"f{i}.wav"), spec.sample_rate,
+                          (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        runs = {}
+        t0 = time.perf_counter()
+        for name, devs in (("one", devices[:1]), ("two", devices)):
+            runs[name] = subprocess.Popen(
+                [sys.executable, "-m", "wavtokenizer_tpu_torch.tools.extract_features",
+                 "--config", os.path.join(root, TRAIN_CONFIG), "--ckpt", ckpt, "--input", wavs,
+                 "--out-dir", os.path.join(d, name), "--device", dev, "--devices",
+                 ",".join(devs), "--batch-size", "4", "--codes"],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, p in runs.items():
+            so, se = p.communicate(timeout=600)
+            check(p.returncode == 0, f"extract_features --devices ({name}) failed:\n{se[-3000:]}")
+            runs[name] = so
+        out["extract_s"] = time.perf_counter() - t0
+        out["extract_head"] = runs["two"].splitlines()[0]
+        feat_rel, code_flips = 0.0, 0
+        for i in range(EXTRACT_FILES):
+            a, b = (np.load(os.path.join(d, n, f"f{i}_features.npy")) for n in ("two", "one"))
+            feat_rel = max(feat_rel, float(np.abs(a - b).max() / np.abs(b).max()))
+            a, b = (np.load(os.path.join(d, n, f"f{i}_codes.npy")) for n in ("two", "one"))
+            code_flips += int((a != b).sum())
+        out["extract_feat_rel"], out["extract_flips"] = feat_rel, code_flips
+        out["extract_ids"] = EXTRACT_FILES * int(T // spec.hop_length)
+    check(out["extract_feat_rel"] <= 1e-4, f"extraction two replicas vs one: features rel "
+          f"{out['extract_feat_rel']:.3g}")
+    check(out["extract_flips"] <= max_flips(out["extract_ids"]),
+          f"extraction two replicas vs one: {out['extract_flips']} code flips")
+    return out
+
+
+def tp_shards_phase(K, block: dict, T_frames: int, dev: str = "cuda") -> dict:
+    """(d) The ConvNeXt kernel on tensor-parallel slices of the hidden
+    width, at the timing batch's shape: the slices' outputs summed against
+    the whole kernel and the plain block, and the slices' launch chains
+    timed against the whole kernel."""
+    from wavtokenizer_tpu_torch.utils.profiling import convnext_bound
+
+    C, I = block["w1"].shape
+    gen = torch.Generator().manual_seed(20)
+    x = torch.randn(TIMING_BATCH, T_frames, C, generator=gen).to(dev)
+    scale, shift = block["adanorm"]["scale"][0], block["adanorm"]["shift"][0]
+    common = (x, block["dw"], block["dwb"], scale, shift)
+    whole_args = common + (block["w1"], block["b1"], block["w2"], block["b2"], block["gamma"],
+                           block["w1t"], block["w2t"])
+    zeros_x, zeros_b2 = torch.zeros_like(x), torch.zeros_like(block["b2"])
+    M = TIMING_BATCH * T_frames
+    with torch.inference_mode():
+        whole = K.convnext_block(*whole_args)
+        plain = K.convnext_block_reference(*whole_args[:10])
+        update = float((plain - x).abs().max())
+        out = {"M": M, "C": C, "I": I, "whole_ms": cuda_ms(lambda: K.convnext_block(*whole_args),
+                                                           20)}
+        out["whole_bound_ms"] = convnext_bound(M, C, I)[0]
+        rows = []
+        for n in TP_SHARDS:
+            w = I // n
+            shards = []
+            for r in range(n):
+                s = slice(r * w, (r + 1) * w)
+                shards.append(common + (
+                    block["w1"][:, s].contiguous(), block["b1"][s].contiguous(),
+                    block["w2"][s].contiguous(), block["b2"] if r == 0 else zeros_b2,
+                    block["gamma"], block["w1t"][s].contiguous(), block["w2t"][:, s].contiguous(),
+                    None if r == 0 else zeros_x))
+            chains = lambda: [K.convnext_block(*a) for a in shards]
+            K.reset_launch_counts()
+            got = sum(chains())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches = K.convnext_block.launches
+            err_whole = float((got - whole).abs().max())
+            err_plain = float((got - plain).abs().max())
+            rows.append({"shards": n, "I_shard": w, "launches": launches,
+                         "ms": cuda_ms(chains, 20),
+                         "bound_ms": n * convnext_bound(M, C, w)[0],
+                         "max_abs_err": max(err_whole, err_plain),
+                         "rel_whole": err_whole / update, "rel_plain": err_plain / update})
+            check(launches == n, f"TP {n} shards launched {launches} chains")
+            check(rows[-1]["rel_whole"] < 1e-2 and rows[-1]["rel_plain"] < 1e-2,
+                  f"TP {n} shards: rel err {rows[-1]['rel_whole']:.3g} (whole kernel), "
+                  f"{rows[-1]['rel_plain']:.3g} (plain)")
+    out["rows"] = rows
     return out
 
 
@@ -2378,6 +2777,53 @@ def main() -> int:
         f"{op['msstft_maps']} outputs and maps: rel-max {op['msstft_rel']:.3g} (limit 1e-4)")
     log(f"[16 options] phase time {time.perf_counter() - t16:.1f} s")
 
+    # -- 17. multi-card paths, on this one card ---------------------------
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    nc = nccl_world_one(K)
+    log(f"[17 multicard] (a) NCCL group of one rank (in process, TCP on localhost): one step of "
+        f"{TRAIN_CONFIG} at {nc['B']} x {nc['T']} from a state past its first step, against the "
+        f"plain step (deterministic algorithms where they exist, for both), relative: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in nc["rel"].items()) + "; the plain step against its "
+        f"repeat: " + ", ".join(f"{k} {v:.3g}" for k, v in nc["floor"].items())
+        + f" (limits: {NCCL_STEP_TOL} or 4x that); grad norm {nc['grad_norm'][0]:.8g} / "
+        f"{nc['grad_norm'][1]:.8g}; collectives {nc['collectives']} over {nc['backend']}; "
+        f"vq_nearest launches {nc['launches']}; card {card}")
+    torch.cuda.empty_cache()
+    gl = gloo_two_ranks()
+    log(f"[17 multicard] (b) two spawned ranks over gloo on this card (CUDA tensors staged "
+        f"through host memory), {MULTI_B} x {TIMING_SECONDS:.0f} s, rows {gl['rows']}, from an "
+        f"un-inited codebook: vq_nearest launches per rank {gl['launches']} (k-means on the "
+        f"{gl['n_rows']} gathered rows in each); collectives of rank 0 {gl['collectives']}; "
+        f"against the one-process step on the global batch: losses rel-max {gl['loss_rel']:.3g} "
+        f"({gl['worst']}), grad norm rel {gl['grad_norm_rel']:.3g} (limits 1e-3), k-means "
+        f"codes {gl['flips']} of {gl['n_rows']} differ (near-ties only; largest gap "
+        f"{gl['gap']:.3g}; gathered samples rel-max {gl['samples_rel']:.3g}), codebook rel-max "
+        f"{gl['embed_rel']:.3g}; step {gl['ms'][0]:.1f} / {gl['ms'][1]:.1f} ms a rank, "
+        f"{gl['one_ms']:.1f} ms in one process; spawn to exit {gl['spawn_s']:.1f} s; card {card}")
+    de = dp_engine_phase(model, params_np, small320, K)
+    log(f"[17 multicard] (c) ServingEngine(devices=['cuda:0', 'cuda:0']): 16 concurrent "
+        f"encode then 16 detokenize requests in {de['wall_s']:.3f} s over {de['batches']} "
+        f"(encode, detokenize) batches, launches {de['launches']} (each kernel once per "
+        f"replica and batch); codes {de['flips']} of {de['n_ids']} differ from direct "
+        f"encode_infer, detokenized audio rel-max {de['wave_rel']:.3g} against direct decode "
+        f"(limit {SAME_CARD_WAVE_TOL}); card {card}")
+    log(f"[17 multicard] (c) tools/extract_features.py --devices cuda:0,cuda:0 against "
+        f"--devices cuda:0 on {EXTRACT_FILES} files, batch 4 (subprocesses, at once, "
+        f"{de['extract_s']:.1f} s; '{de['extract_head']}'): features rel-max "
+        f"{de['extract_feat_rel']:.3g} (limit 1e-4), codes {de['extract_flips']} of "
+        f"{de['extract_ids']} differ")
+    tps = tp_shards_phase(K, block, T_frames)
+    for r in tps["rows"]:
+        log(f"[17 multicard] (d) convnext_block M={tps['M']} C={tps['C']} I={tps['I']} in "
+            f"{r['shards']} tensor-parallel slices of {r['I_shard']} ({r['launches']} launch "
+            f"chains; the slices after the first given zero residual and b2): summed against "
+            f"the whole kernel rel {r['rel_whole']:.3g}, against plain rel {r['rel_plain']:.3g} "
+            f"(over max |out - x|; limit 1e-2); the {r['shards']} chains {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms) against the whole kernel {tps['whole_ms']:.4f} ms "
+            f"(bound {tps['whole_bound_ms']:.4f} ms); card {card}")
+    log(f"[17 multicard] phase time {time.perf_counter() - t17:.1f} s")
+
     rows = [
         {"name": "vq_nearest", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/vq_nearest.cu",
@@ -2408,7 +2854,11 @@ def main() -> int:
                    "plain_ms": vc["plain_ms"], "bound_ms": vc["bound_ms"],
                    "bound_by": vc["bound_by"], "cublas_pair_ms": vc["gemm_ms"],
                    "max_abs_err": max(vc["cnx_err"], vc["cnx_err_t"]),
-                   "launches_per_decode": vc["launches"]["convnext_block"]}},
+                   "launches_per_decode": vc["launches"]["convnext_block"]},
+         "tp_shards": [{"M": tps["M"], "C": tps["C"], "shards": r["shards"],
+                        "I_shard": r["I_shard"], "ms": r["ms"], "whole_ms": tps["whole_ms"],
+                        "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+                       for r in tps["rows"]]},
         {"name": "encoder_front", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/encoder_front.cu",
          "replaces": "wavtokenizer_tpu/ops/encoder_front.py:371",

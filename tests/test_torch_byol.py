@@ -48,7 +48,7 @@ TCFG = dict(dim=16, num_heads=2, num_layers=1, ffn=32)
 ACFG = dict(encoder_dim=16, hidden=8, num_residual_blocks=1)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -93,7 +93,7 @@ def test_init_byol_is_bit_equal_to_jax(cfg):
 @pytest.fixture(scope="module")
 def byol():
     params = jb.init_byol(jb.BYOLConfig(**BCFG), seed=1)
-    return {"np": params, "t": byol_from_jax(params), "tcfg": tb.BYOLConfig(**BCFG),
+    return {"np": params, "t": byol_from_jax(params, device="cpu"), "tcfg": tb.BYOLConfig(**BCFG),
             "jcfg": jb.BYOLConfig(**BCFG)}
 
 
@@ -115,7 +115,7 @@ def test_byol_loss_gradient_and_target_update_match_jax(byol, one_thread):
     loss_j, g_j = jax.jit(jax.value_and_grad(lambda on: jb.byol_loss(
         {"online": on, "target": params["target"]}, jnp.asarray(x1), jnp.asarray(x2),
         byol["jcfg"])))(params["online"])
-    tp = byol_from_jax(byol["np"])
+    tp = byol_from_jax(byol["np"], device="cpu")
     for t in tree_leaves(tp["online"]):
         t.requires_grad_(True)
     loss_t = tb.byol_loss(tp, torch.from_numpy(x1), torch.from_numpy(x2), byol["tcfg"])
@@ -129,7 +129,8 @@ def test_byol_loss_gradient_and_target_update_match_jax(byol, one_thread):
     # EMA from a moved online net.
     moved = jax.tree.map(lambda a: a + 0.1, params["online"])
     want_t = jb.target_update({"online": moved, "target": params["target"]}, tau=0.9)["target"]
-    tp2 = byol_from_jax({"online": jax.device_get(moved), "target": byol["np"]["target"]})
+    tp2 = byol_from_jax({"online": jax.device_get(moved), "target": byol["np"]["target"]},
+                        device="cpu")
     assert tb.target_update(tp2, tau=0.9) is tp2
     _assert_close_trees(tp2["target"], jax.device_get(want_t), 1e-6)
 
@@ -189,19 +190,20 @@ def test_init_inpath_transformer_is_bit_equal_to_jax():
 @pytest.mark.parametrize("train", [True, False])
 def test_inpath_transformer_and_enhancement_stack_match_jax(inpath, train, one_thread):
     feats = _x(8, (2, 12, 16)) * 0.2 + 1.0
-    tr_t = inpath_transformer_from_jax(inpath["tr"])
+    tr_t = inpath_transformer_from_jax(inpath["tr"], device="cpu")
     want = ja.inpath_transformer(inpath["tr"], jnp.asarray(feats), inpath["jcfg"])
     got = ta.inpath_transformer(tr_t, torch.from_numpy(feats), inpath["tcfg"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
     enh_j, st_j = ja.try_enhancement_stack(inpath["tr"], inpath["ap"], inpath["st"],
                                            jnp.asarray(feats), train=train,
                                            transformer_cfg=inpath["jcfg"])
-    ap_t, st_t = adapter_from_jax(inpath["ap"], inpath["st"])
+    ap_t, st_t = adapter_from_jax(inpath["ap"], inpath["st"], device="cpu")
     enh_t, new_t = ta.try_enhancement_stack(tr_t, ap_t, st_t, torch.from_numpy(feats),
                                             train=train, transformer_cfg=inpath["tcfg"])
     enh_j = np.asarray(enh_j)
     assert float(np.abs(enh_t.numpy() - enh_j).max() / np.abs(enh_j).max()) < 1e-4
-    _assert_close_trees(new_t, adapter_from_jax(inpath["ap"], jax.device_get(st_j))[1], 1e-5)
+    _assert_close_trees(new_t, adapter_from_jax(inpath["ap"], jax.device_get(st_j), "cpu")[1],
+                        1e-5)
 
 
 def test_load_byol_transformer_copies_the_leaves_jax_copies(inpath):
@@ -211,12 +213,12 @@ def test_load_byol_transformer_copies_the_leaves_jax_copies(inpath):
     cfg = dict(BCFG, hidden_dim=16, ff_dim=32, input_dim=16)
     ck = jb.init_byol(jb.BYOLConfig(**cfg), seed=9)["online"]["encoder"]
     want, n_j = ja.load_byol_transformer(inpath["tr"], ck)
-    got, n_t = ta.load_byol_transformer(inpath_transformer_from_jax(inpath["tr"]),
-                                        byol_from_jax({"online": {"encoder": ck}, "target": {}})
-                                        ["online"]["encoder"])
+    got, n_t = ta.load_byol_transformer(inpath_transformer_from_jax(inpath["tr"], device="cpu"),
+                                        byol_from_jax({"online": {"encoder": ck},
+                                                       "target": {}}, "cpu")["online"]["encoder"])
     assert n_t == n_j == 16
     _assert_close_trees(got, want, 0.0)
-    none, n0 = ta.load_byol_transformer(inpath_transformer_from_jax(inpath["tr"]),
+    none, n0 = ta.load_byol_transformer(inpath_transformer_from_jax(inpath["tr"], device="cpu"),
                                         {"layers": [{"q": {"weight": torch.zeros(3, 3)}}]})
     assert n0 == 0
 
@@ -274,8 +276,8 @@ def test_enhance_step_byol_mode_matches_jax(inpath, one_thread):
                                            "cpu", train=True)),
             "decoder": dbl(seanet_from_jax(params["decoder"], decoder_layer_specs(tspec.seanet),
                                            "cpu", train=True))}
-    ap_t, st_t = (dbl(t) for t in adapter_from_jax(ap, st))
-    tr_t = dbl(inpath_transformer_from_jax(tr))
+    ap_t, st_t = (dbl(t) for t in adapter_from_jax(ap, st, device="cpu"))
+    tr_t = dbl(inpath_transformer_from_jax(tr, device="cpu"))
     opt_t = te.make_enhance_optimizer(ap_t, base["decoder"], tcfg, tr_t)
     trainable_t = te.enhance_trainable(ap_t, base["decoder"], tcfg, tr_t)
     assert list(trainable_t) == ["adapter", "decoder", "transformer"]
@@ -286,10 +288,10 @@ def test_enhance_step_byol_mode_matches_jax(inpath, one_thread):
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-5)
 
     def port_layout(t):
-        return {"adapter": adapter_from_jax(t["adapter"], st)[0],
+        return {"adapter": adapter_from_jax(t["adapter"], st, device="cpu")[0],
                 "decoder": seanet_from_jax(t["decoder"], decoder_layer_specs(tspec.seanet),
                                            "cpu", train=True),
-                "transformer": inpath_transformer_from_jax(t["transformer"])}
+                "transformer": inpath_transformer_from_jax(t["transformer"], device="cpu")}
 
     want_g = _flat(port_layout(grads_j))
     got_g = dict(zip(_flat(trainable_t), (g.numpy() for g in grads_t)))
@@ -306,4 +308,4 @@ def test_enhance_step_byol_mode_matches_jax(inpath, one_thread):
         diff = np.abs(got_p[k] - want_p[k])
         assert diff[np.abs(want_g[k]) > 1e-7].max(initial=0.0) <= lr, k
         assert diff.max(initial=0.0) <= 4 * lr + 1e-6, k
-    _assert_close_trees(st_t, adapter_from_jax(ap_j, st_j)[1], 1e-5)
+    _assert_close_trees(st_t, adapter_from_jax(ap_j, st_j, device="cpu")[1], 1e-5)

@@ -25,6 +25,16 @@ from wavtokenizer_tpu_torch.metrics import periodicity as tper
 from wavtokenizer_tpu_torch.metrics import utmos as tu
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _voiced(n: int, seed: int, f0: float = 220.0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 16000

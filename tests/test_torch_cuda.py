@@ -547,8 +547,8 @@ def test_enhance_step_card_matches_cpu_in_float64(cuda, mode):
                 "decoder": dbl(seanet_from_jax(p["decoder"], decoder_layer_specs(spec.seanet),
                                                "cpu", train=True))}
         ap, st = (dbl(t) for t in adapter_from_jax(*init_adapter(
-            AdapterConfig(encoder_dim=16, hidden=8, num_residual_blocks=1), seed=1)))
-        tr = dbl(inpath_transformer_from_jax(init_inpath_transformer(tcfg, seed=2))) \
+            AdapterConfig(encoder_dim=16, hidden=8, num_residual_blocks=1), seed=1), "cpu"))
+        tr = dbl(inpath_transformer_from_jax(init_inpath_transformer(tcfg, seed=2), "cpu")) \
             if mode == "byol" else None
         opt = E.make_enhance_optimizer(ap, base["decoder"], ecfg, tr)
         _, loss, g_norm = E.enhance_step(opt, ap, st, base["decoder"], base, noisy.to(dev),
@@ -686,3 +686,101 @@ def test_msstft_discriminator_card_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = prev
     for g, w in zip(got[0] + sum(got[1], []), want[0] + sum(want[1], []), strict=True):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_nccl_world_of_one_all_reduces_and_gathers(cuda):
+    """An in-process NCCL group of one rank (TCP rendezvous on a free port):
+    the mesh's flat-buffer all-reduce and gather run through NCCL and leave
+    a world of one's tensors as they were."""
+    import socket
+
+    import torch.distributed as dist
+
+    from wavtokenizer_tpu_torch.parallel import mesh as M
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    M.init_distributed("nccl", "cuda:0", f"tcp://127.0.0.1:{port}", 0, 1)
+    try:
+        mesh = M.make_mesh(1, "cuda:0")
+        assert dist.get_backend(mesh.data_group) == "nccl"
+        a = torch.randn(5, 3, device=cuda)
+        b = torch.randn(7, device=cuda, dtype=torch.float64)
+        want = (a.clone(), b.clone())
+        before = dict(M.COLLECTIVES)
+        M.all_reduce_mean([a, b], mesh.data_group)
+        gathered = M.all_gather(a, mesh.data_group)
+        torch.cuda.synchronize()
+        assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+        assert torch.equal(gathered, a)
+        # One all-reduce per dtype, one gather.
+        assert M.COLLECTIVES["all_reduce"] - before.get("all_reduce", 0) == 2
+        assert M.COLLECTIVES["all_gather"] - before.get("all_gather", 0) == 1
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_convnext_kernel_tp_shards_sum_to_the_block(cuda, shards):
+    """The kernel launched on each slice of the hidden width (I = 384 in 2
+    or 3 slices of 192 or 128; the ranks after the first given zeros for the
+    residual and b2) sums to the whole kernel's block and to the plain one."""
+    B, T, C, I = 2, 75, 128, 384
+    g = torch.Generator().manual_seed(7)
+    f = lambda *s, sc=0.1: (torch.randn(*s, generator=g) * sc).to(cuda)
+    x, dw, dwb, scale, shift = f(B, T, C, sc=1.0), f(7, C), f(C), 1 + f(C), f(C)
+    w1, b1 = f(C, I, sc=0.05).to(torch.bfloat16), f(I)
+    w2, b2, gamma = f(I, C, sc=0.05).to(torch.bfloat16), f(C), f(C, sc=0.3)
+    whole = K.convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma)
+    want = K.convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma)
+    w = I // shards
+    before = K.convnext_block.launches
+    parts = []
+    for r in range(shards):
+        cols = slice(r * w, (r + 1) * w)
+        parts.append(K.convnext_block(
+            x, dw, dwb, scale, shift, w1[:, cols].contiguous(), b1[cols].contiguous(),
+            w2[cols].contiguous(), b2 if r == 0 else torch.zeros_like(b2), gamma,
+            residual=None if r == 0 else torch.zeros_like(x)))
+    got = sum(parts)
+    torch.cuda.synchronize()
+    assert K.convnext_block.launches == before + shards
+    scale_ = float((want - x).abs().max())
+    assert float((got - whole).abs().max()) / scale_ < 1e-2
+    assert float((got - want).abs().max()) / scale_ < 1e-2
+
+
+def test_dp_engine_launches_every_kernel_in_both_replicas_on_one_card(cuda):
+    """ServingEngine(devices=["cuda:0", "cuda:0"]): a batch split over two
+    replicas launches the VQ and ConvNeXt kernels once in each, and answers
+    what the direct calls give."""
+    from wavtokenizer_tpu_torch import (ISTFTHeadConfig, SEANetConfig, VQConfig,
+                                        VocosBackboneConfig, WavTokenizer, WavTokenizerSpec,
+                                        init_wavtokenizer)
+    from wavtokenizer_tpu_torch.api.engine import EngineConfig, ServingEngine
+
+    spec = WavTokenizerSpec(
+        seanet=SEANetConfig(dimension=32, n_filters=2, ratios=(8, 5, 4, 2)),
+        vq=VQConfig(dimension=32, bins=64),
+        backbone=VocosBackboneConfig(input_channels=32, dim=64, intermediate_dim=128,
+                                     num_layers=2, adanorm_num_embeddings=4),
+        head=ISTFTHeadConfig(dim=64, n_fft=1280, hop_length=320))
+    wt = WavTokenizer.from_jax_params(init_wavtokenizer(spec, seed=0, random_codebook=True),
+                                      spec, "cuda:0")
+    audio = (np.random.default_rng(2).normal(size=(4, 8000)) * 0.1).astype(np.float32)
+    _, codes = wt.encode_infer(audio)
+    direct = wt.decode(wt.codes_to_features(codes), 0).cpu().numpy()
+    eng = ServingEngine(wt, EngineConfig(batch_sizes=(4,), clip_seconds=(8000 / 24000,)),
+                        devices=["cuda:0", "cuda:0"])
+    try:
+        K.reset_launch_counts()
+        got_codes = eng._run_encode(audio)[1]
+        wave = eng._run_detok(got_codes[0])
+        torch.cuda.synchronize()
+        assert K.vq_nearest.launches == 2
+        assert K.convnext_block.launches == 2 * spec.backbone.num_layers
+    finally:
+        eng.close()
+    np.testing.assert_array_equal(got_codes, codes.cpu().numpy())
+    assert np.abs(wave - direct).max() <= 2e-3 * np.abs(direct).max()

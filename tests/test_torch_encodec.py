@@ -42,6 +42,16 @@ from wavtokenizer_tpu_torch.ops.resample import linear_overlap_add as t_ola
 SEANET_KW = dict(dimension=32, n_filters=4, n_residual_layers=1, ratios=(8, 5, 4, 2), lstm=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-12))

@@ -24,6 +24,16 @@ from wavtokenizer_tpu_torch.ops import encoder_front as tef
 from wavtokenizer_tpu_torch.ops import kernels as K
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _front(cfg_kw: dict | None = None, seed: int = 0):
     """(JAX params, JAX specs, port params, port specs) of one encoder."""
     kw = cfg_kw or {}

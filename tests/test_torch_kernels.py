@@ -17,6 +17,16 @@ from wavtokenizer_tpu_torch.ops import kernels as K
 from wavtokenizer_tpu_torch.utils.golden import max_flips
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_codes_agree(x, embed, got, want):
     """Equal codes, except near-ties: a differing id whose two distances,
     recomputed in float64, differ by under 1e-5 relative; at most

@@ -24,6 +24,16 @@ from wavtokenizer_tpu_torch.tools import metrics_infer as tcli
 NETS = ("utmos", "periodicity_rmse", "pitch_rmse_cents", "voiced_f1")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")

@@ -32,6 +32,16 @@ from wavtokenizer_tpu_torch.ops.lstm import lstm_from_layers, slstm as t_slstm
 from wavtokenizer_tpu_torch.ops.spectral import istft_same as t_istft_same
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-12))

@@ -30,6 +30,16 @@ from wavtokenizer_tpu_torch.utils.audio import resample_np
 RATES = [(44100, 24000), (16000, 24000), (48000, 24000)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _audio(seed, shape):
     return (np.random.default_rng(seed).normal(size=shape) * 0.3).astype(np.float32)
 

@@ -50,7 +50,7 @@ NARROW = dict(n_filters=2, dimension=16)
 ACFG = dict(encoder_dim=16, hidden=8, num_residual_blocks=1)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """Many small torch ops: one intra-op thread avoids contention with the
     other test workers."""
@@ -152,11 +152,11 @@ def test_apply_adapter_and_bn_state_match_jax(narrow, train, one_thread):
     x = _audio(7, (3, 20, 16), 1.0)
     state = jax.tree.map(lambda s: s + np.float32(0.5), narrow["astate"])  # not the init's
     want, want_state = ja.apply_adapter(narrow["aparams"], state, jnp.asarray(x), train=train)
-    tp, ts = adapter_from_jax(narrow["aparams"], state)
+    tp, ts = adapter_from_jax(narrow["aparams"], state, device="cpu")
     got, got_state = ta.apply_adapter(tp, ts, torch.from_numpy(x), train=train)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
     _assert_close_trees(_flat(got_state), _flat(adapter_from_jax(narrow["aparams"],
-                                                                 want_state)[1]), 1e-5)
+                                                                 want_state, "cpu")[1]), 1e-5)
     if not train:   # the stored statistics, untouched
         assert all(a is b for a, b in zip(tree_leaves(got_state), tree_leaves(ts), strict=True))
 
@@ -165,7 +165,7 @@ def test_apply_adapter_and_bn_state_match_jax(narrow, train, one_thread):
 def test_enhanced_forward_matches_jax(narrow, feature_scale, one_thread):
     audio = _audio(8, (2, 3200))
     base = ta.base_params_from_jax(narrow["params"], narrow["tspec"].seanet, "cpu")
-    tp, ts = adapter_from_jax(narrow["aparams"], narrow["astate"])
+    tp, ts = adapter_from_jax(narrow["aparams"], narrow["astate"], device="cpu")
     got = ta.enhanced_forward(base, narrow["tspec"].seanet, tp, ts, torch.from_numpy(audio),
                               train=True, feature_scale=feature_scale)
     want = jax.jit(lambda p, a: ja.enhanced_forward(
@@ -178,8 +178,8 @@ def test_enhanced_forward_matches_jax(narrow, feature_scale, one_thread):
     # enhanced ones amplified (measured 4.5e-5 of their max).
     assert _rel_max(got[1].detach().numpy(), want[1]) < 1e-4
     assert _rel_max(got[0].detach().numpy(), want[0]) < 1e-4
-    _assert_close_trees(_flat(got[3]), _flat(adapter_from_jax(narrow["aparams"], want[3])[1]),
-                        1e-5)
+    _assert_close_trees(_flat(got[3]),
+                        _flat(adapter_from_jax(narrow["aparams"], want[3], device="cpu")[1]), 1e-5)
 
 
 def test_enhanced_forward_at_front_widths_takes_the_front_route(monkeypatch, one_thread):
@@ -196,7 +196,7 @@ def test_enhanced_forward_at_front_widths_takes_the_front_route(monkeypatch, one
     front = K.encoder_front
     monkeypatch.setattr(K, "encoder_front", lambda *a: calls.append(1) or front(*a))
     audio = _audio(9, (2, 1280))
-    tp, ts = adapter_from_jax(aparams, astate)
+    tp, ts = adapter_from_jax(aparams, astate, device="cpu")
     got = ta.enhanced_forward(base, tspec.seanet, tp, ts, torch.from_numpy(audio),
                               train=False, feature_scale=1.5)
     assert len(calls) == 1
@@ -297,7 +297,7 @@ def steps(request, narrow):
                                            "cpu", train=True)),
             "decoder": dbl(seanet_from_jax(params["decoder"], decoder_layer_specs(tspec.seanet),
                                            "cpu", train=True))}
-    ap_t, st_t = (dbl(t) for t in adapter_from_jax(aparams, astate))
+    ap_t, st_t = (dbl(t) for t in adapter_from_jax(aparams, astate, device="cpu"))
     dec_t = base["decoder"]
     opt_t = te.make_enhance_optimizer(ap_t, dec_t, tcfg)
     T = lambda x: torch.from_numpy(x)
@@ -315,7 +315,7 @@ def steps(request, narrow):
 
     def port_layout(tree):
         """A JAX-layout trainable tree (params or grads) in the port's layout."""
-        out_tree = {"adapter": adapter_from_jax(tree["adapter"], astate)[0]}
+        out_tree = {"adapter": adapter_from_jax(tree["adapter"], astate, device="cpu")[0]}
         if "decoder" in tree:
             out_tree["decoder"] = seanet_from_jax(tree["decoder"],
                                                   decoder_layer_specs(tspec.seanet), "cpu",
@@ -331,7 +331,7 @@ def steps(request, narrow):
     if train_decoder:
         want_tr["decoder"] = dec_j
     out["params"] = (_flat(trainable_t), _flat(port_layout(want_tr)))
-    out["state"] = (_flat(st_t), _flat(adapter_from_jax(ap_j, st_j)[1]))
+    out["state"] = (_flat(st_t), _flat(adapter_from_jax(ap_j, st_j, device="cpu")[1]))
     return out
 
 
@@ -375,7 +375,7 @@ def test_enhance_step_gradient_is_ill_conditioned_in_float32(narrow, one_thread)
 
     def grads(x):
         base = ta.base_params_from_jax(narrow["params"], tspec.seanet, "cpu")
-        ap, st = adapter_from_jax(narrow["aparams"], narrow["astate"])
+        ap, st = adapter_from_jax(narrow["aparams"], narrow["astate"], device="cpu")
         te.make_enhance_optimizer(ap, base["decoder"], cfg)
         tr = te.enhance_trainable(ap, base["decoder"], cfg)
         loss, _ = te.enhance_loss(ap, st, base["decoder"], base, torch.from_numpy(x),

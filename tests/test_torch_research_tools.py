@@ -74,7 +74,7 @@ model:
 SR = 24000
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -163,13 +163,13 @@ def test_enhance_train_cli_and_resume(env, tmp_path, one_thread):
     assert {"metrics.jsonl", "best_model.pt", "step_2.pt", "last.pt"} <= set(os.listdir(run))
     rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     assert rows[0]["step"] == 0 and np.isfinite(rows[0]["loss"])
-    last = load_tree(str(run / "last.pt"))
+    last = load_tree(str(run / "last.pt"), device="cpu")
     assert last["step"] == 2
 
     # The same two steps driven directly.
     spec, params_np = enhance_train.load_base_model(env["cfg"], env["ckpt"])
     base = base_params_from_jax(params_np, spec.seanet, "cpu")
-    ap, st = adapter_from_jax(*init_adapter(seed=0))
+    ap, st = adapter_from_jax(*init_adapter(seed=0), device="cpu")
     dec = base["decoder"]
     ecfg = enhance.EnhanceConfig(mode="waveform")
     opt = enhance.make_enhance_optimizer(ap, dec, ecfg)
@@ -184,7 +184,7 @@ def test_enhance_train_cli_and_resume(env, tmp_path, one_thread):
 
     # Resume for one more step: Adam restarts, as in the JAX tool.
     assert enhance_train.main(args + ["--steps", "3", "--resume", str(run / "last.pt")]) == 0
-    again = load_tree(str(run / "last.pt"))
+    again = load_tree(str(run / "last.pt"), device="cpu")
     assert again["step"] == 3
     assert not torch.equal(again["adapter"]["out_conv"]["weight"],
                            last["adapter"]["out_conv"]["weight"])
@@ -195,7 +195,7 @@ def test_enhance_infer_cli_matches_jax(env, tmp_path, one_thread):
     model's); 1 s files, longer than a 0.5 s chunk."""
     jspec, jparams = env["jspec"], env["jparams"]
     aparams, astate = ja.init_adapter(seed=5)
-    ap, st = adapter_from_jax(aparams, astate)
+    ap, st = adapter_from_jax(aparams, astate, device="cpu")
     ckpt = str(tmp_path / "adapter.pt")
     save_tree(ckpt, {"adapter": ap, "adapter_state": st, "step": 0,
                      "decoder": seanet_from_jax(jparams["decoder"],
@@ -234,11 +234,11 @@ def test_byol_train_cli(env, tmp_path, one_thread):
     assert byol_train.main(["--features-dir", str(feats), "--steps", "3", "--batch-size", "4",
                             "--crop-frames", "8", "--out-dir", str(run), "--tsne-out", str(tsne),
                             "--device", "cpu"]) == 0
-    got = load_tree(str(run / "byol_model.pt"))
+    got = load_tree(str(run / "byol_model.pt"), device="cpu")
     assert np.load(tsne).shape == (3, 2)
 
     cfg = byol.BYOLConfig(input_dim=24)
-    params = byol_from_jax(byol.init_byol(cfg, seed=0))
+    params = byol_from_jax(byol.init_byol(cfg, seed=0), device="cpu")
     online = tree_leaves(params["online"])
     for t in online:
         t.requires_grad_(True)
@@ -302,7 +302,7 @@ def test_analyze_features_cli_matches_jax(env, tmp_path, one_thread):
 
     # compare: clean (encoder) and enhanced features of an adapter checkpoint.
     aparams, astate = ja.init_adapter(seed=8)
-    ap, st = adapter_from_jax(aparams, astate)
+    ap, st = adapter_from_jax(aparams, astate, device="cpu")
     ckpt = str(tmp_path / "adapter.pt")
     save_tree(ckpt, {"adapter": ap, "adapter_state": st, "step": 0,
                      "decoder": seanet_from_jax(jparams["decoder"],

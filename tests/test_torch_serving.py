@@ -31,6 +31,16 @@ from wavtokenizer_tpu_torch.tools import serve
 CLIP = 2400   # 0.1 s at 24 kHz, 75 frames of hop 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def narrow():
     tspec, jspec = _small_specs()

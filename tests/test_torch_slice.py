@@ -33,6 +33,16 @@ SMALL = dict(seanet=dict(n_filters=8, dimension=32, ratios=(4, 2, 2, 2)),
              head=dict(dim=64, n_fft=128, hop_length=32))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the test run's parallel workers share the cores,
+    and PyTorch's default pool (a thread per core) in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _small_specs():
     t = WavTokenizerSpec(seanet=SEANetConfig(**SMALL["seanet"]), vq=VQConfig(**SMALL["vq"]),
                          backbone=VocosBackboneConfig(**SMALL["backbone"]),

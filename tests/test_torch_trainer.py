@@ -69,7 +69,7 @@ trainer:
 """
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """Many small torch ops: one intra-op thread avoids contention with the
     other test workers."""

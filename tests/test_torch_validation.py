@@ -47,7 +47,7 @@ VAL_KEYS = ("val_mel_loss", "val_utmos_score", "val_pesq_score", "val_periodicit
             "val_pitch_loss", "val_f1_score", "val_stoi")
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -38,7 +38,7 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "wavtokenizer_tpu_torch", "configs", "vocos_mel_24khz.yaml")
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """Many small torch ops: one intra-op thread avoids contention with the
     other test workers."""

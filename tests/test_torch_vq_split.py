@@ -27,7 +27,7 @@ from wavtokenizer_tpu_torch.ops import kernels as K
 BK, KS = 32, 8    # the kernel's k-block and wgmma depth
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One torch thread: the emulation is many small ops, which other test
     processes on the same cores slow down by an order of magnitude when

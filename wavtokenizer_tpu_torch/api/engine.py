@@ -23,10 +23,15 @@ requests into batched model calls:
 ``api.streaming``), and ``warmup()`` runs every (batch bucket x clip bucket)
 once, so the first requests find the kernels built.
 
+* **Data-parallel over devices** (the JAX engine's ``mesh``/``_place``,
+  ``engine.py:105-120, 341-347, 387-390``): ``devices`` holds one replica
+  of the weights per entry (``parallel/replicas.py``); each bucket batch is
+  split into equal row blocks, one per replica, every replica's call issued
+  before any result is read.  Every bucket size must divide by the number
+  of devices.  One process, no process group.
+
 Left out of the JAX engine: the LRU of per-shape compiled programs
-(``_program``, ``max_programs``), because eager PyTorch compiles nothing;
-and ``mesh``/``_place``, data-parallel serving over several devices, which
-is a later piece of the port (``ROADMAP.md``).
+(``_program``, ``max_programs``), because eager PyTorch compiles nothing.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..parallel.replicas import Replicas
 
 
 def _resolve(fut: Future, value) -> None:
@@ -87,15 +94,24 @@ class EngineStats:
 class ServingEngine:
     """Micro-batching server around a loaded ``WavTokenizer``.
 
-    >>> eng = ServingEngine(wt)
+    >>> eng = ServingEngine(wt)                  # or devices=["cuda:0", "cuda:1"]
     >>> fut = eng.submit("encode", audio_np)     # non-blocking
     >>> feats, codes = fut.result()
     >>> wav = eng.detokenize(codes_np)           # blocking
     """
 
-    def __init__(self, wt, config: EngineConfig | None = None):
+    def __init__(self, wt, config: EngineConfig | None = None, devices=None):
+        """``devices``: where the replicas live (default: the model's own
+        device); a bucket size that does not divide by their number raises
+        ``ValueError``."""
         self.wt = wt
         self.cfg = config if config is not None else EngineConfig()
+        self.replicas = Replicas(wt, devices)
+        bad = [b for b in self.cfg.batch_sizes if b % len(self.replicas)]
+        if bad:
+            self.replicas.close()
+            raise ValueError(f"batch buckets {bad} not divisible by the {len(self.replicas)} "
+                             "devices")
         self.hop = wt.spec.seanet.hop_length
         self.sr = wt.spec.sample_rate
         self.stats = EngineStats()
@@ -193,6 +209,7 @@ class ServingEngine:
         # queue holds its sentinel and work it will still serve.
         if self._worker.is_alive():
             return
+        self.replicas.close()
         while True:
             try:
                 item = self._q.get_nowait()
@@ -296,15 +313,19 @@ class ServingEngine:
                 for i, (fut, _) in enumerate(items):
                     _resolve(fut, wav[i])
 
-    # ---- model calls (on the worker thread, or in warmup) ----------------
+    # ---- model calls (on the worker thread, or in warmup), one row block
+    # per replica; codes (B, T') are axis 1 of the model's (1, B, T') -------
 
     def _run_encode(self, x: np.ndarray):
-        feats, codes = self.wt.encode_infer(torch.from_numpy(x))
-        return feats.cpu().numpy(), codes.cpu().numpy()
+        out = self.replicas.map(lambda m, rows: m.encode_infer(torch.from_numpy(rows)), x)
+        return (np.concatenate([f.cpu().numpy() for f, _ in out]),
+                np.concatenate([c.cpu().numpy() for _, c in out], axis=1))
 
     def _run_decode(self, x: np.ndarray) -> np.ndarray:
-        return self.wt.decode(torch.from_numpy(x), bandwidth_id=0).cpu().numpy()
+        out = self.replicas.map(lambda m, rows: m.decode(torch.from_numpy(rows), 0), x)
+        return np.concatenate([w.cpu().numpy() for w in out])
 
     def _run_detok(self, codes: np.ndarray) -> np.ndarray:
-        feats = self.wt.codes_to_features(torch.from_numpy(codes)[None])
-        return self.wt.decode(feats, bandwidth_id=0).cpu().numpy()
+        out = self.replicas.map(lambda m, rows: m.decode(
+            m.codes_to_features(torch.from_numpy(rows)[None]), 0), codes)
+        return np.concatenate([w.cpu().numpy() for w in out])

@@ -33,6 +33,7 @@ package's.
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -320,6 +321,20 @@ def from_jax_params(params_np: dict, spec: WavTokenizerSpec, device="cuda") -> d
     }
 
 
+def _params_to(tree, device: torch.device):
+    """A copy of a params tree on ``device``: tensors copied, modules (the
+    inference LSTMs) deep-copied and moved."""
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_params_to(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(device)
+    return tree
+
+
 class WavTokenizer:
     """Inference facade around (params, WavTokenizerSpec) on one device."""
 
@@ -327,6 +342,12 @@ class WavTokenizer:
         self.params = params
         self.spec = spec
         self.device = torch.device(device)
+
+    def to(self, device) -> "WavTokenizer":
+        """A replica on ``device``, with its own copy of the weights (the
+        data-parallel engine and extraction keep one per device)."""
+        device = torch.device(device)
+        return WavTokenizer(_params_to(self.params, device), self.spec, device)
 
     @classmethod
     def from_jax_params(cls, params_np: dict, spec: WavTokenizerSpec,

@@ -372,7 +372,7 @@ def surgical_resume_params(sd, spec: WavTokenizerSpec, keep_quantizer_layers: in
 # imported where it is used.
 # --------------------------------------------------------------------------
 
-def adapter_from_jax(params: dict, state: dict, device="cpu") -> tuple:
+def adapter_from_jax(params: dict, state: dict, device="cuda") -> tuple:
     """The adapter's (params, BN state) of ``research/adapter.py::
     init_adapter`` (either package's) -> tensors: conv kernels (K, C_in,
     C_out) become conv weights (C_out, C_in, K); BN params and state as
@@ -391,7 +391,7 @@ def adapter_from_jax(params: dict, state: dict, device="cpu") -> tuple:
     return walk(params), to_tensors(state, device)
 
 
-def inpath_transformer_from_jax(params: dict, device="cpu") -> dict:
+def inpath_transformer_from_jax(params: dict, device="cuda") -> dict:
     """The in-path transformer (``init_inpath_transformer`` or
     ``inpath_transformer_from_torch``) -> tensors; linear weights stay
     (in, out), as the port multiplies ``x @ weight``."""
@@ -399,7 +399,7 @@ def inpath_transformer_from_jax(params: dict, device="cpu") -> dict:
     return to_tensors(params, device)
 
 
-def byol_from_jax(params: dict, device="cpu") -> dict:
+def byol_from_jax(params: dict, device="cuda") -> dict:
     """The BYOL online and target trees (``init_byol``, or a JAX checkpoint's)
     -> tensors, linear weights (in, out)."""
     from ..train.step import to_tensors

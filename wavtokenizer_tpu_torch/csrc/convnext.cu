@@ -307,13 +307,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int K) {
 template <int EPI>
 int launch_gemm(const void* a, const void* bt, const float* bias, const float* gamma,
                 const float* resid, void* out, int M, int K, int N, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static std::atomic<unsigned long long> configured{0};
+  if (const int e = allow_smem(gemm_kernel<EPI>, GEMM_SMEM, &configured)) return e;
   CUtensorMap map_a, map_b;
   if (!make_map(&map_a, a, M, K) || !make_map(&map_b, bt, N, K)) return kMapError;
   int sms = 0;

@@ -80,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -456,13 +458,8 @@ front_kernel(const float* __restrict__ audio, const float* __restrict__ wa,
 extern "C" int wt_encoder_front(const float* audio, const float* wa, const float* wb,
                                 const float* wd, const float* bd, float* out, int B,
                                 int T, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static std::atomic<unsigned long long> configured{0};
+  if (const int e = hopper::allow_smem(front_kernel, SMEM_BYTES, &configured)) return e;
   const int tiles = (T / 8 + NT - 1) / NT;
   front_kernel<<<B * tiles, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       audio, wa, wb, wd, bd, out, T, tiles);

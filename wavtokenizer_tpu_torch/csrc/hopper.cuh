@@ -2,7 +2,8 @@
 // (convnext.cu, vq_nearest.cu): mbarrier waits and arrivals, 2-D TMA loads,
 // wgmma shared-memory descriptors, and the host-side encoding of TMA tensor
 // maps through cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint
-// so that a library links only the CUDA runtime.
+// so that a library links only the CUDA runtime.  encoder_front.cu takes
+// only the per-device shared-memory opt-in (allow_smem).
 //
 // Included by each source; ops/kernels.py hashes this header into every
 // library's name, so an edit here rebuilds them all.
@@ -12,6 +13,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -147,6 +150,23 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
 // Error code for a tensor map cuTensorMapEncodeTiled refused (not a
 // cudaError value).
 constexpr int kMapError = 10000;
+
+// Opts fn into `bytes` of dynamic shared memory on the current device, once
+// per device: the attribute belongs to the function's instance in each
+// device's context, so a process that launches on several cards sets it on
+// each.  `done` is the caller's bit set of devices already set.
+template <typename F>
+inline int allow_smem(F* fn, int bytes, std::atomic<unsigned long long>* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (done->load() & bit)) return 0;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done->fetch_or(bit);
+  return 0;
+}
 
 // Number of SMs of the current device, read once.
 inline int sm_count(int* sms) {

@@ -295,13 +295,8 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
 // (the TMA row stride) and 16-byte aligned x and pack.
 extern "C" int wt_vq_nearest(const float* x, const float* pack, const float* esq,
                              void* keys, int* out, int N, int C, int D, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(vq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static std::atomic<unsigned long long> configured{0};
+  if (const int e = allow_smem(vq_kernel, SMEM, &configured)) return e;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap map_x, map_hi, map_lo;
   if (!make_map(&map_x, f32, 4, x, N, D, BK, BM) ||

@@ -11,6 +11,13 @@ package trains the plain fp32 block
 (``wavtokenizer_tpu/train/step.py:206``), whose weights the training params
 hold in fp32.  Convolution weights are in PyTorch's
 (C_out, C_in, K) layout, Linear weights as (C_in, C_out).
+
+A block whose params carry a tensor-parallel placement under "tp"
+(``parallel/mesh.py::shard_generator_params``) holds one slice of the MLP's
+hidden width and sums the slices' outputs over its model group: dw conv and
+(Ada)LN replicated, pwconv1 by columns, GELU, pwconv2 by rows, one
+all-reduce, then b2, the layer scale and the residual.  For inference each
+model rank launches the kernel on its slice.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from ..ops.conv import conv1d
 from ..ops.kernels import convnext_block as convnext_block_kernel
 from ..ops.remat import checkpointed
 from ..ops.spectral import istft_same
+from ..parallel.mesh import copy_to_model, reduce_from_model
 
 
 @dataclass(frozen=True)
@@ -70,18 +78,23 @@ def ada_layer_norm(p: dict, x: torch.Tensor, cond_id: int) -> torch.Tensor:
 
 def pos_resnet_block(p: dict, x: torch.Tensor, groups: int,
                      dropout_generator: torch.Generator | None = None,
-                     dropout_rate: float = 0.0) -> torch.Tensor:
+                     dropout_rate: float = 0.0, dropout_rows: tuple | None = None) -> torch.Tensor:
     """GroupNorm -> swish -> conv(k3) -> GroupNorm -> swish -> [dropout] ->
     conv(k3) + x (ref decoder/models.py:19-78; the reference trains with
     Dropout(0.1) there, models.py:66-70,200).  The dropout runs only with a
     generator (on x's device) and a positive rate: the keep mask is uniform
-    draws below 1 - rate, the kept values scaled by 1 / (1 - rate)."""
+    draws below 1 - rate, the kept values scaled by 1 / (1 - rate).
+    ``dropout_rows`` = (start, total) says that x holds rows start.. of a
+    global batch of ``total``: the mask is drawn for the global batch and
+    these rows taken, so that data parallelism draws what one process does."""
     h = F.silu(group_norm(x, p["norm1"]["weight"], p["norm1"]["bias"], groups))
     h = conv1d(h, p["conv1"]["weight"], p["conv1"]["bias"], padding=(1, 1))
     h = F.silu(group_norm(h, p["norm2"]["weight"], p["norm2"]["bias"], groups))
     if dropout_generator is not None and dropout_rate > 0.0:
         keep = 1.0 - dropout_rate
-        mask = torch.rand(h.shape, generator=dropout_generator, device=h.device) < keep
+        start, total = dropout_rows or (0, h.shape[0])
+        mask = torch.rand((total,) + h.shape[1:], generator=dropout_generator,
+                          device=h.device)[start:start + h.shape[0]] < keep
         h = torch.where(mask, h / keep, 0.0)
     h = conv1d(h, p["conv2"]["weight"], p["conv2"]["bias"], padding=(1, 1))
     return x + h
@@ -109,23 +122,41 @@ def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None,
     ``fused`` runs the block as ``ops/kernels.py::convnext_block`` (the
     kernel on the card, bf16 matmul operands); ``fused=False`` is the plain
     fp32 block that training differentiates, as the JAX package's
-    ``convnext_block(fused=False)``."""
+    ``convnext_block(fused=False)``.
+
+    Under tensor parallelism (``p["tp"]``) the fused block launches the
+    kernel on this rank's slice; a rank after the first passes zeros for
+    the residual and b2 (the kernel's epilogue adds what it is given), so
+    the slices' outputs, summed over the model group, are the block's."""
     if "adanorm" in p:
         scale, shift = p["adanorm"]["scale"][cond_id], p["adanorm"]["shift"][cond_id]
     else:
         scale, shift = p["norm"]["weight"], p["norm"]["bias"]
+    tp = p.get("tp")
     if fused:
-        return convnext_block_kernel(x, p["dw"], p["dwb"], scale, shift, p["w1"],
-                                     p["b1"], p["w2"], p["b2"], p["gamma"],
-                                     p.get("w1t"), p.get("w2t"))
+        if tp is None:
+            return convnext_block_kernel(x, p["dw"], p["dwb"], scale, shift, p["w1"],
+                                         p["b1"], p["w2"], p["b2"], p["gamma"],
+                                         p.get("w1t"), p.get("w2t"))
+        first = tp.rank == 0
+        part = convnext_block_kernel(
+            x, p["dw"], p["dwb"], scale, shift, p["w1"], p["b1"], p["w2"],
+            p["b2"] if first else torch.zeros_like(p["b2"]), p["gamma"], p.get("w1t"),
+            p.get("w2t"), residual=None if first else torch.zeros_like(x))
+        return reduce_from_model(part, tp.group)
     C = x.shape[-1]
     h = conv1d(x, p["dw"].t().unsqueeze(1), p["dwb"], padding=(3, 3), groups=C)
     if "adanorm" in p:
         h = layer_norm(h) * scale + shift
     else:
         h = layer_norm(h, scale, shift)
+    if tp is not None:
+        h = copy_to_model(h, tp.group)
     h = F.gelu(h @ p["w1"] + p["b1"])
-    h = h @ p["w2"] + p["b2"]
+    h = h @ p["w2"]
+    if tp is not None:
+        h = reduce_from_model(h, tp.group)
+    h = h + p["b2"]
     if "gamma" in p:
         h = p["gamma"] * h
     return x + h
@@ -134,15 +165,17 @@ def convnext_block(p: dict, x: torch.Tensor, cond_id: int | None = None,
 def backbone_stem(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
                   bandwidth_id: int | None = None,
                   dropout_generator: torch.Generator | None = None,
-                  dropout_rate: float = 0.0, remat: bool = False) -> torch.Tensor:
+                  dropout_rate: float = 0.0, remat: bool = False,
+                  dropout_rows: tuple | None = None) -> torch.Tensor:
     """The backbone up to its ConvNeXt stack: embed conv -> pos-net (2
     resblocks, attention, 2 resblocks, GroupNorm) -> (Ada)LN; the first
-    block's input.  ``remat`` checkpoints each pos-net block (training)."""
+    block's input.  ``remat`` checkpoints each pos-net block (training);
+    ``dropout_rows`` as in ``pos_resnet_block``."""
     g = cfg.groupnorm_groups
 
     def res(p, x):
         return checkpointed(pos_resnet_block, p, x, g, dropout_generator, dropout_rate,
-                            remat=remat, generators=(dropout_generator,))
+                            dropout_rows, remat=remat, generators=(dropout_generator,))
 
     x = conv1d(x, params["embed"]["weight"], params["embed"]["bias"], padding=(3, 3))
     pos = params["pos_net"]
@@ -164,13 +197,16 @@ def backbone_stem(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
 def vocos_backbone(params: dict, cfg: VocosBackboneConfig, x: torch.Tensor,
                    bandwidth_id: int | None = None, fused: bool = True,
                    dropout_generator: torch.Generator | None = None,
-                   dropout_rate: float = 0.0, remat: bool = False) -> torch.Tensor:
+                   dropout_rate: float = 0.0, remat: bool = False,
+                   dropout_rows: tuple | None = None) -> torch.Tensor:
     """x (B, T, input_channels) -> (B, T, dim) (ref decoder/models.py:223-235):
     ``backbone_stem`` -> ConvNeXt stack -> final LayerNorm.  ``fused`` as in
     ``convnext_block``; ``dropout_generator``/``dropout_rate`` turn on the
-    pos-net resblocks' training dropout (``pos_resnet_block``); ``remat``
-    checkpoints each pos-net and ConvNeXt block (training, ``fused=False``)."""
-    x = backbone_stem(params, cfg, x, bandwidth_id, dropout_generator, dropout_rate, remat)
+    pos-net resblocks' training dropout (``pos_resnet_block``, with
+    ``dropout_rows``); ``remat`` checkpoints each pos-net and ConvNeXt block
+    (training, ``fused=False``)."""
+    x = backbone_stem(params, cfg, x, bandwidth_id, dropout_generator, dropout_rate, remat,
+                      dropout_rows)
     for block in params["convnext"]:
         x = checkpointed(convnext_block, block, x, bandwidth_id, fused, remat=remat)
     return layer_norm(x, params["final_layer_norm"]["weight"],

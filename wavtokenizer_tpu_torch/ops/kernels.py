@@ -26,9 +26,12 @@ PyTorch header is compiled.
 Every wrapper dispatches on the device of its input: a CPU tensor goes to
 the plain PyTorch version beside it (``*_reference``, what the CPU tests
 run), a CUDA tensor to the kernel, anything else raises.  There is no
-fallback from the card to the plain version.  Each wrapper counts its
-kernel launches in its ``launches`` attribute, and the launches' work (the
-FLOPs of the function computed, ``utils/profiling.py``) in ``flops``.
+fallback from the card to the plain version.  A kernel launches on its
+input's card, on that card's current stream, whichever card is current
+(the data-parallel engine drives several from one process).  Each wrapper
+counts its kernel launches in its ``launches`` attribute, and the launches'
+work (the FLOPs of the function computed, ``utils/profiling.py``) in
+``flops``, under a lock (replicas launch from several threads).
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ ENTRY_POINTS = {
 
 _lib = None
 _lib_lock = threading.Lock()   # the first build may run on a worker thread
+_count_lock = threading.Lock()
 build_seconds = None   # wall time of the nvcc calls that built the libraries
 
 
@@ -155,8 +159,14 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _count(wrapper, flops: int) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.flops += flops
 
 
 def _dispatch(x: torch.Tensor, name: str) -> bool:
@@ -232,10 +242,10 @@ def vq_nearest(x: torch.Tensor, embed: torch.Tensor, esq: torch.Tensor | None = 
         return out
     keys = torch.empty(N, dtype=torch.int64, device=x.device)
     lib = load_library()
-    rc = lib.wt_vq_nearest(x.data_ptr(), pack.data_ptr(), esq.data_ptr(), keys.data_ptr(),
-                           out.data_ptr(), N, C, D, _stream())
-    vq_nearest.launches += 1
-    vq_nearest.flops += vq_flops(N, C, D)
+    with torch.cuda.device(x.device):
+        rc = lib.wt_vq_nearest(x.data_ptr(), pack.data_ptr(), esq.data_ptr(), keys.data_ptr(),
+                               out.data_ptr(), N, C, D, _stream(x.device))
+    _count(vq_nearest, vq_flops(N, C, D))
     _check(rc, "vq_nearest")
     return out
 
@@ -254,12 +264,15 @@ def pack_convnext_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
     return w1.t().contiguous(), w2.t().contiguous()
 
 
-def convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
+def convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
+                             residual=None):
     """Plain version of the block with the kernel's rounding: the matmul
     operands rounded to bf16, the products summed in fp32.
 
     x (B, T, C) f32; dw (7, C); dwb, scale, shift, b2, gamma (C,);
-    w1 (C, I), w2 (I, C) (any float type, rounded to bf16); b1 (I,)."""
+    w1 (C, I), w2 (I, C) (any float type, rounded to bf16); b1 (I,).
+    ``residual`` (B, T, C), x when not given, is what the layer-scaled
+    update is added to."""
     B, T, C = x.shape
     h = F.conv1d(x.transpose(1, 2), dw.t().unsqueeze(1), dwb, padding=3,
                  groups=C).transpose(1, 2)
@@ -267,11 +280,22 @@ def convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma):
     bf = lambda t: t.to(torch.bfloat16).float()
     g = F.gelu(bf(h) @ bf(w1) + b1)
     y = bf(g) @ bf(w2) + b2
-    return x + gamma * y
+    return (x if residual is None else residual) + gamma * y
+
+
+def check_convnext_widths(C: int, I: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes channels C and hidden
+    width I (a tensor-parallel shard's I included): C <= 1024 (one warp
+    holds a row in dw+LN) and C, I multiples of 32.  The GEMMs' 128-wide
+    tiles need no more: TMA zero-fills a ragged last K block and the
+    epilogue masks a ragged last N tile."""
+    if C > 1024 or C % 32 or I % 32:
+        raise ValueError(f"convnext_block kernel needs C <= 1024 and C, I "
+                         f"multiples of 32; got C={C}, I={I}")
 
 
 def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
-                   w1t=None, w2t=None):
+                   w1t=None, w2t=None, residual=None):
     """One ConvNeXt block, arguments as in ``convnext_block_reference``.
 
     On the card ``w1``/``w2`` must already be bf16 (the model stores them
@@ -279,18 +303,21 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
     read their weights K-major, as ``w1t`` = w1^T (I, C) and ``w2t`` = w2^T
     (C, I); the model packs them once when it is built
     (``pack_convnext_weights``), and a caller without them gets them
-    transposed here, per call."""
+    transposed here, per call.  ``residual`` goes to the second GEMM's
+    epilogue in x's place (a tensor-parallel shard after the first passes
+    zeros there and for b2, so that the shards' outputs sum to the block's)."""
     if not _dispatch(x, "convnext_block"):
         return convnext_block_reference(x, dw, dwb, scale, shift, w1, b1, w2,
-                                        b2, gamma)
+                                        b2, gamma, residual)
     B, T, C = x.shape
     I = w1.shape[1]
     dev = x.device
-    if C > 1024 or C % 32 or I % 32:
-        raise ValueError(f"convnext_block kernel needs C <= 1024 and C, I "
-                         f"multiples of 32; got C={C}, I={I}")
+    check_convnext_widths(C, I)
     f32, bf16 = torch.float32, torch.bfloat16
     _require(x, "x", f32, (B, T, C), dev)
+    if residual is None:
+        residual = x
+    _require(residual, "residual", f32, (B, T, C), dev)
     _require(dw, "dw", f32, (7, C), dev)
     for name, t in (("dwb", dwb), ("scale", scale), ("shift", shift),
                     ("b2", b2), ("gamma", gamma)):
@@ -309,17 +336,17 @@ def convnext_block(x, dw, dwb, scale, shift, w1, b1, w2, b2, gamma,
     if M == 0:
         return out
     lib = load_library()
-    s = _stream()
-    _check(lib.wt_convnext_dwln(x.data_ptr(), dw.data_ptr(), dwb.data_ptr(),
-                                scale.data_ptr(), shift.data_ptr(),
-                                h.data_ptr(), B, T, C, s), "convnext dwln")
-    _check(lib.wt_convnext_gemm1(h.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                                 g.data_ptr(), M, C, I, s), "convnext gemm1")
-    _check(lib.wt_convnext_gemm2(g.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                                 gamma.data_ptr(), x.data_ptr(),
-                                 out.data_ptr(), M, I, C, s), "convnext gemm2")
-    convnext_block.launches += 1
-    convnext_block.flops += convnext_flops(M, C, I)
+    s = _stream(dev)
+    with torch.cuda.device(dev):
+        _check(lib.wt_convnext_dwln(x.data_ptr(), dw.data_ptr(), dwb.data_ptr(),
+                                    scale.data_ptr(), shift.data_ptr(),
+                                    h.data_ptr(), B, T, C, s), "convnext dwln")
+        _check(lib.wt_convnext_gemm1(h.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+                                     g.data_ptr(), M, C, I, s), "convnext gemm1")
+        _check(lib.wt_convnext_gemm2(g.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                                     gamma.data_ptr(), residual.data_ptr(),
+                                     out.data_ptr(), M, I, C, s), "convnext gemm2")
+    _count(convnext_block, convnext_flops(M, C, I))
     return out
 
 
@@ -368,11 +395,11 @@ def encoder_front(audio: torch.Tensor, params: list, specs: list) -> torch.Tenso
     if B == 0:
         return out
     lib = load_library()
-    rc = lib.wt_encoder_front(audio.data_ptr(), pack["a"].data_ptr(),
-                              pack["b"].data_ptr(), pack["wd"].data_ptr(),
-                              pack["bd"].data_ptr(), out.data_ptr(), B, T, _stream())
-    encoder_front.launches += 1
-    encoder_front.flops += front_flops(B * T)
+    with torch.cuda.device(dev):
+        rc = lib.wt_encoder_front(audio.data_ptr(), pack["a"].data_ptr(),
+                                  pack["b"].data_ptr(), pack["wd"].data_ptr(),
+                                  pack["bd"].data_ptr(), out.data_ptr(), B, T, _stream(dev))
+    _count(encoder_front, front_flops(B * T))
     _check(rc, "encoder_front")
     return out
 

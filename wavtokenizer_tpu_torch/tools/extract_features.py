@@ -2,13 +2,18 @@
 or a directory tree, saved as ``<stem>_features.npy`` (D, T'), and with
 ``--codes`` the token ids as ``<stem>_codes.npy`` (1, T').
 
-Port of ``extract_features.py`` (ref extract_features.py:32-178) on one
-card: every file is peak-normalised, repeat-padded or cropped to
-``--seconds``, and the windows go through the encoder in batches of
-``--batch-size`` (the encoder front runs in its CUDA kernel).
+Port of ``extract_features.py`` (ref extract_features.py:32-178): every
+file is peak-normalised, repeat-padded or cropped to ``--seconds``, and the
+windows go through the encoder in batches of ``--batch-size`` (the encoder
+front runs in its CUDA kernel), data-parallel over ``--devices`` (default:
+every visible card, or ``--device``) as the JAX tool shards its batches
+over every device (``extract_features.py:57-88``): one replica of the
+weights per device, the batch size rounded down to a multiple of their
+number, and a ragged last batch padded with zero rows that are cut back.
 
     python -m wavtokenizer_tpu_torch.tools.extract_features --config c.yaml \\
-        --ckpt m.ckpt --input dir/ --out-dir feats/ [--codes] [--device cuda]
+        --ckpt m.ckpt --input dir/ --out-dir feats/ [--codes] [--device cuda] \\
+        [--devices cuda:0,cuda:1]
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ def main(argv=None):
     parser.add_argument("--input", required=True, help="audio file or directory")
     parser.add_argument("--out-dir", required=True)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--devices", default=None,
+                        help="comma-separated devices, one replica each (default: every "
+                             "visible card for --device cuda, else --device)")
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--seconds", type=float, default=3.0,
                         help="window length per item (repeat-pad/crop)")
@@ -64,28 +72,44 @@ def main(argv=None):
     from ..models.quantize import vq_infer
     from ..models.seanet import seanet_encode
     from ..models.wavtokenizer import full_fp32
+    from ..parallel.replicas import Replicas, device_list
 
-    wt = WavTokenizer.from_pretrained0802(args.config, args.ckpt, device=args.device)
+    if args.devices is None and args.device == "cuda":
+        args.devices = ",".join(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    devices = device_list(args.devices, args.device)
+    wt = WavTokenizer.from_pretrained0802(args.config, args.ckpt, device=devices[0])
+    replicas = Replicas(wt, devices)
+    n_dev = len(replicas)
     spec = wt.spec
     T = int(args.seconds * spec.sample_rate)
     os.makedirs(args.out_dir, exist_ok=True)
     files = list(iter_audio_files(args.input))
-    print(f"{len(files)} files, batch {args.batch_size} on {wt.device}")
+    B = args.batch_size - args.batch_size % n_dev or n_dev
+    print(f"{len(files)} files, batch {B} over {n_dev} device(s): "
+          + ", ".join(str(d) for d in devices))
 
-    for i in range(0, len(files), args.batch_size):
-        chunk = files[i:i + args.batch_size]
-        audio = torch.from_numpy(np.stack([load_window(p, spec.sample_rate, T)
-                                           for p in chunk])).to(wt.device)
+    def extract(model, rows):
+        audio = torch.from_numpy(rows).to(model.device)
         with torch.inference_mode(), full_fp32():
-            emb = seanet_encode(wt.params["encoder"], spec.seanet, audio[:, :, None])
-            _, codes = vq_infer(wt.params["quantizer"], emb)
-        feats = emb.transpose(1, 2).cpu().numpy()       # (B, D, T')
-        codes = codes.cpu().numpy()                     # (1, B, T')
+            emb = seanet_encode(model.params["encoder"], spec.seanet, audio[:, :, None])
+            _, codes = vq_infer(model.params["quantizer"], emb)
+        return emb.transpose(1, 2), codes                # (b, D, T'), (1, b, T')
+
+    for i in range(0, len(files), B):
+        chunk = files[i:i + B]
+        batch = np.stack([load_window(p, spec.sample_rate, T) for p in chunk])
+        if len(batch) % n_dev:      # zero rows to divide over the devices
+            pad = n_dev - len(batch) % n_dev
+            batch = np.concatenate([batch, np.zeros((pad, T), np.float32)])
+        out = replicas.map(extract, batch)
+        feats = np.concatenate([f.cpu().numpy() for f, _ in out])[:len(chunk)]
+        codes = np.concatenate([c.cpu().numpy() for _, c in out], axis=1)[:, :len(chunk)]
         for j, p in enumerate(chunk):
             np.save(os.path.join(args.out_dir, p.stem + "_features.npy"), feats[j])
             if args.codes:
                 np.save(os.path.join(args.out_dir, p.stem + "_codes.npy"), codes[:, j])
         print(f"[{i + len(chunk)}/{len(files)}]")
+    replicas.close()
     return 0
 
 

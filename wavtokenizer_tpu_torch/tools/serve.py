@@ -19,7 +19,11 @@ closed engine, a device failure or a timeout is ours (500).
 Usage:
     python -m wavtokenizer_tpu_torch.tools.serve --port 8787 \\
         [--config c.yaml --checkpoint m.ckpt] [--device cuda] \\
-        [--batch-sizes 1,8,32] [--clip-seconds 3.0] [--warmup]
+        [--devices cuda:0,cuda:1] [--batch-sizes 1,8,32] [--clip-seconds 3.0] [--warmup]
+
+``--devices`` serves data-parallel: one replica of the weights per listed
+device, each bucket batch split over them (every bucket size must divide by
+their number); the default is the one ``--device``.
 
 Without --config/--checkpoint it serves the random small-320 model
 (``init_wavtokenizer``, seed 0).
@@ -119,6 +123,8 @@ def main(argv=None):
     ap.add_argument("--config", default=None)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices, one replica each (default: --device)")
     ap.add_argument("--batch-sizes", default="1,8,32")
     ap.add_argument("--clip-seconds", default="3.0")
     ap.add_argument("--max-wait-ms", type=float, default=4.0)
@@ -128,6 +134,10 @@ def main(argv=None):
 
     from ..api.engine import EngineConfig, ServingEngine
     from ..api.pretrained import WavTokenizer
+    from ..parallel.replicas import device_list
+
+    devices = device_list(args.devices, args.device)
+    args.device = devices[0]
 
     if args.config and args.checkpoint:
         wt = WavTokenizer.from_pretrained0802(args.config, args.checkpoint,
@@ -144,12 +154,12 @@ def main(argv=None):
         batch_sizes=tuple(int(b) for b in args.batch_sizes.split(",")),
         clip_seconds=tuple(float(s) for s in args.clip_seconds.split(",")),
         max_wait_ms=args.max_wait_ms)
-    engine = ServingEngine(wt, cfg)
+    engine = ServingEngine(wt, cfg, devices=devices)
     if args.warmup:
         print("warming up (every bucket once)...", flush=True)
         engine.warmup()
-    kind = (torch.cuda.get_device_name(wt.device) if wt.device.type == "cuda"
-            else str(wt.device))
+    kind = ", ".join(torch.cuda.get_device_name(d) if d.type == "cuda" else str(d)
+                     for d in devices)
     httpd = build_server(args.host, args.port, engine, kind)
     print(f"serving on http://{args.host}:{httpd.server_address[1]} (device: {kind})",
           flush=True)

@@ -44,12 +44,17 @@ def log_mel(audio: np.ndarray, sample_rate: int) -> np.ndarray:
 class TBLogger:
     """Thin TensorBoard writer; does nothing without tensorboard."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str | None):
+        """``logdir`` None: a logger that writes nothing (the ranks of a
+        multi-card run after the first)."""
+        self._w = None
+        if logdir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._w = SummaryWriter(logdir)
         except Exception:
-            self._w = None
+            pass
 
     @property
     def enabled(self) -> bool:

@@ -38,6 +38,17 @@ bandwidth_id, the seeds of the two dropout generators (on the audio's
 device) and k-means' sample indices, in that order.  JAX draws from its own
 keys, so the two packages agree only where the draws do not matter or are
 passed in: a given ``bandwidth_id``, an inited codebook, no dropout.
+
+Data parallelism (``shard``, a ``parallel/mesh.py::BatchShard``): ``audio``
+holds this rank's rows of the global batch; every rank draws from a
+generator of the same seed, so the bandwidth_id, n_q, k-means' means and the
+dropout masks (drawn for the global batch, this rank's rows taken) are
+those of one process on the global batch; the VQ statistics are the global
+batch's (``train/vq_train.py``); the gradients of both optimizers are
+averaged over the data group right after each backward, and the logged
+metrics are the global batch's means.  Tensor parallelism lives in the
+generator tree (``parallel/mesh.py::shard_train_state``): the gradient norm
+then sums the shards' squares over the model group.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from ..models.init import init_wavtokenizer
 from ..models.seanet import encoder_layer_specs, seanet_encode
 from ..models.vocos import istft_head, vocos_backbone
 from ..models.wavtokenizer import WavTokenizerSpec
+from ..parallel.mesh import BatchShard, all_reduce_mean, grad_norm
 from .discriminators import cast_floats, init_discriminators
 from .losses import dac_disc_loss, dac_gen_loss, mel_loss, vocos_disc_loss, vocos_gen_loss
 from .vq_train import vq_train_forward
@@ -225,7 +237,8 @@ def generator_forward(gen: dict, vq: dict, spec: WavTokenizerSpec, audio: torch.
                       bandwidth_id: int, n_q: int, generator: torch.Generator | None = None,
                       dropout_generator: torch.Generator | None = None,
                       dropout_rate: float = 0.0, remat: bool = False,
-                      remat_encoder: bool | None = None, compute_dtype=None):
+                      remat_encoder: bool | None = None, compute_dtype=None,
+                      shard: BatchShard | None = None):
     """Training forward: encoder -> VQ (train) -> backbone -> head (ref
     experiment.py:114-119 via feature_extractors.py:105-119).  audio (B, T)
     -> (audio_hat (B, T), commit loss, new VQ state).
@@ -234,18 +247,21 @@ def generator_forward(gen: dict, vq: dict, spec: WavTokenizerSpec, audio: torch.
     ``remat_encoder`` is False, the encoder's layers; the VQ runs outside
     every checkpoint.  ``compute_dtype`` runs the backbone and head in that
     type (their weights and the quantized input cast); audio_hat comes back
-    in the audio's type."""
+    in the audio's type.  ``shard``: where audio's rows lie in the global
+    batch (the VQ statistics and the dropout masks are the global batch's)."""
     enc = fold_tree(gen["encoder"])
     remat_enc = remat if remat_encoder is None else (remat and remat_encoder)
     emb = seanet_encode(enc, spec.seanet, audio[:, :, None], front=False, remat=remat_enc)
-    quantized, _, commit, new_vq = vq_train_forward(vq, spec.vq, emb, n_q, generator)
+    quantized, _, commit, new_vq = vq_train_forward(vq, spec.vq, emb, n_q, generator,
+                                                    shard.group if shard else None)
     backbone, head = gen["backbone"], gen["head"]
     if compute_dtype is not None:
         backbone, head = cast_floats(backbone, compute_dtype), cast_floats(head, compute_dtype)
         quantized = quantized.to(compute_dtype)
     h = vocos_backbone(backbone, spec.backbone, quantized, bandwidth_id=bandwidth_id,
                        fused=False, dropout_generator=dropout_generator,
-                       dropout_rate=dropout_rate, remat=remat)
+                       dropout_rate=dropout_rate, remat=remat,
+                       dropout_rows=(shard.start, shard.total) if shard else None)
     return istft_head(head, spec.head, h).to(audio.dtype), commit, new_vq
 
 
@@ -263,11 +279,12 @@ def _disc_loss_fn(disc: dict, audio_hat, audio, bandwidth_id: int, mrd_coeff: fl
 
 
 def _gen_loss_fn(gen, disc, vq, spec, tcfg, audio, bandwidth_id, n_q, mel_coeff,
-                 train_discriminator, generator, dropout_generator):
+                 train_discriminator, generator, dropout_generator, shard=None):
     """ref experiment.py:151-218."""
     audio_hat, commit_loss, new_vq = generator_forward(
         gen, vq, spec, audio, bandwidth_id, n_q, generator, dropout_generator,
-        tcfg.pos_dropout, tcfg.remat, tcfg.remat_encoder, compute_dtype(tcfg.gen_compute_dtype))
+        tcfg.pos_dropout, tcfg.remat, tcfg.remat_encoder, compute_dtype(tcfg.gen_compute_dtype),
+        shard)
     l_mel = mel_loss(audio_hat, audio, spec.sample_rate)
     metrics = {"mel_loss": l_mel, "commit_loss": commit_loss}
     loss = mel_coeff * l_mel + 1000.0 * commit_loss
@@ -287,17 +304,23 @@ def _gen_loss_fn(gen, disc, vq, spec, tcfg, audio, bandwidth_id, n_q, mel_coeff,
     return loss, metrics, new_vq
 
 
-def _backward(loss: torch.Tensor, opt: torch.optim.Optimizer) -> list:
+def _backward(loss: torch.Tensor, opt: torch.optim.Optimizer,
+              shard: BatchShard | None = None) -> list:
     """Gradients of ``loss`` into the optimizer's tensors; a tensor the loss
     does not reach gets a zero gradient, so AdamW still decays it and moves
-    its moments, as optax updates every leaf."""
+    its moments, as optax updates every leaf.  With ``shard`` the gradients
+    are then averaged over its data group: each rank's loss is the mean over
+    an equal block of the global batch, so the average is the global batch's
+    gradient."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
     params = opt.param_groups[0]["params"]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    return [p.grad for p in params]
+    grads = [p.grad for p in params]
+    all_reduce_mean(grads, shard.group if shard else None)
+    return grads
 
 
 def _dropout_generators(generator: torch.Generator, device) -> list:
@@ -308,7 +331,8 @@ def _dropout_generators(generator: torch.Generator, device) -> list:
 def discriminator_phase(state: dict, audio: torch.Tensor, spec: WavTokenizerSpec,
                         tcfg: TrainConfig, bandwidth_id: int, n_q: int = 1,
                         generator: torch.Generator | None = None,
-                        dropout_generator: torch.Generator | None = None) -> tuple:
+                        dropout_generator: torch.Generator | None = None,
+                        shard: BatchShard | None = None) -> tuple:
     """The discriminator update (ref experiment.py:125-148): a generator
     forward without gradients (it advances the VQ state, k-means included
     on an un-inited codebook), the discriminator loss on its detached
@@ -318,11 +342,12 @@ def discriminator_phase(state: dict, audio: torch.Tensor, spec: WavTokenizerSpec
         audio_hat, _, vq = generator_forward(state["gen"], state["vq"], spec, audio,
                                              bandwidth_id, n_q, generator, dropout_generator,
                                              tcfg.pos_dropout,
-                                             compute_dtype=compute_dtype(tcfg.gen_compute_dtype))
+                                             compute_dtype=compute_dtype(tcfg.gen_compute_dtype),
+                                             shard=shard)
     loss, metrics = _disc_loss_fn(state["disc"], audio_hat, audio, bandwidth_id,
                                   tcfg.mrd_loss_coeff, disc_remat_mode(tcfg.remat, tcfg.remat_disc),
                                   compute_dtype(tcfg.disc_compute_dtype))
-    _backward(loss, state["opt_disc"])
+    _backward(loss, state["opt_disc"], shard)
     state["opt_disc"].step()
     state["sched_disc"].step()
     return vq, metrics
@@ -333,7 +358,7 @@ def generator_phase(state: dict, vq: dict, audio: torch.Tensor, spec: WavTokeniz
                     generator: torch.Generator | None = None,
                     dropout_generator: torch.Generator | None = None,
                     mel_coeff: float = 45.0, train_discriminator: bool = True,
-                    with_grad_norm: bool = False) -> dict:
+                    with_grad_norm: bool = False, shard: BatchShard | None = None) -> dict:
     """The generator update (ref experiment.py:151-218) from the VQ state
     ``vq``: the training forward, mel and commitment losses and, with
     ``train_discriminator``, the adversarial and feature losses of the
@@ -347,14 +372,15 @@ def generator_phase(state: dict, vq: dict, audio: torch.Tensor, spec: WavTokeniz
     try:
         loss, metrics, new_vq = _gen_loss_fn(
             state["gen"], state["disc"], vq, spec, tcfg, audio, bandwidth_id, n_q, mel_coeff,
-            train_discriminator, generator, dropout_generator)
-        grads = _backward(loss, state["opt_gen"])
+            train_discriminator, generator, dropout_generator, shard)
+        grads = _backward(loss, state["opt_gen"], shard)
     finally:
         for p in disc_params:
             p.requires_grad_(True)
     if with_grad_norm:
         # Global generator gradient norm (GradNormCallback, helpers.py:49-55).
-        metrics["grad_norm"] = torch.sqrt(sum(g.pow(2).sum() for g in grads))
+        metrics["grad_norm"] = grad_norm(state["opt_gen"].param_groups[0]["params"], grads,
+                                         state["gen"])
     state["opt_gen"].step()
     state["sched_gen"].step()
     state["vq"] = new_vq
@@ -364,13 +390,17 @@ def generator_phase(state: dict, vq: dict, audio: torch.Tensor, spec: WavTokeniz
 def train_step(state: dict, audio: torch.Tensor, spec: WavTokenizerSpec,
                tcfg: TrainConfig, generator: torch.Generator | None = None,
                mel_coeff: float = 45.0, train_discriminator: bool = True, n_q: int = 1,
-               with_grad_norm: bool = False, bandwidth_id: int | None = None):
+               with_grad_norm: bool = False, bandwidth_id: int | None = None,
+               shard: BatchShard | None = None):
     """One batch: ``discriminator_phase``, then ``generator_phase``
-    (Lightning's order).  audio (B, T) 24 kHz crops on the state's device.
+    (Lightning's order).  audio (B, T) 24 kHz crops on the state's device:
+    with ``shard``, this rank's rows of the global batch
+    (``parallel/mesh.py::batch_shard``).
 
     ``generator`` (CPU; default: seeded with the step count) draws the
     bandwidth_id unless one is given, the dropout seeds and k-means' sample
-    indices.  Returns (state, metrics), the metrics as 0-d tensors."""
+    indices.  Returns (state, metrics), the metrics as 0-d tensors (the
+    global batch's means)."""
     if generator is None:
         generator = torch.Generator().manual_seed(state["step"])
     if bandwidth_id is None:
@@ -379,11 +409,18 @@ def train_step(state: dict, audio: torch.Tensor, spec: WavTokenizerSpec,
     vq, metrics = state["vq"], {}
     if train_discriminator:
         vq, metrics = discriminator_phase(state, audio, spec, tcfg, bandwidth_id, n_q,
-                                          generator, drop_d)
+                                          generator, drop_d, shard)
     metrics.update(generator_phase(state, vq, audio, spec, tcfg, bandwidth_id, n_q, generator,
-                                   drop_g, mel_coeff, train_discriminator, with_grad_norm))
+                                   drop_g, mel_coeff, train_discriminator, with_grad_norm,
+                                   shard))
     state["step"] += 1
-    return state, {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if shard is not None and shard.group is not None:
+        # Each rank's means -> the global batch's; the gradient norm is
+        # already the global one.
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        all_reduce_mean([v for k, v in metrics.items() if k != "grad_norm"], shard.group)
+    return state, metrics
 
 
 def mel_coeff_decay(tcfg: TrainConfig, step: int, num_cycles: float = 0.5) -> float:

@@ -8,8 +8,20 @@ val_loss = mel + (5 - utmos) + (5 - pesq) + 1000 * commit
 (configs/*.yaml ModelCheckpoint), JSONL metrics (the TensorBoard scalars'
 stand-in) and TensorBoard media when tensorboard is installed.
 
-On one device (``cuda`` unless the caller asks for the CPU); the JAX
-package's data-parallel mesh is not ported.  Validation scores the
+On one device (``cuda`` unless the caller asks for the CPU), or over the
+ranks of a ``torchrun`` launch (``WORLD_SIZE`` > 1; JAX's trainer meshes
+every device it sees, ``trainer.py:182-221``): data parallelism over NCCL
+between cards (gloo on the CPU), with the ConvNeXt MLPs split over
+``model_parallel`` ranks (the argument, or ``WT_MODEL_PARALLEL``).  The
+global batch stays the config's ``batch_size``: every rank reads the global
+batch the one-process loader yields at that step and trains on its own rows
+of it (``parallel/mesh.py::shard_batch``), so a run does not depend on the
+world size; the state is broadcast from rank 0 at the start, sharded for
+tensor parallelism, and gathered whole before every save, so a checkpoint
+does not depend on the world size or on ``model_parallel``.  Rank 0 alone
+writes ``metrics.jsonl``, TensorBoard and the checkpoints, and validates on
+the whole state as one process does while the other ranks wait at a
+barrier.  Validation scores the
 reconstructions with the objective evaluators of ``metrics/`` on 16 kHz
 audio, as the JAX package does: periodicity, pitch and voicing (NAC, or
 CREPE with ``WT_CREPE_CKPT``), UTMOS (with ``WT_UTMOS_CKPT``, else 0), PESQ
@@ -31,6 +43,9 @@ from ..api.config import spec_from_config_dict
 from ..api.pretrained import WavTokenizer
 from ..checkpoint.convert import surgical_resume_params
 from ..models.wavtokenizer import WavTokenizerSpec
+from ..parallel.mesh import (barrier, batch_shard, gather_train_state, init_distributed,
+                             make_mesh, replicate_train_state, shard_train_state,
+                             world_size_from_env)
 from .data import DataConfig, WavDataset, data_loader
 from .helpers import TBLogger
 from .losses import mel_loss
@@ -165,7 +180,7 @@ def save_tree(path: str, tree) -> None:
     os.replace(tmp, path)
 
 
-def load_tree(path: str, device="cpu"):
+def load_tree(path: str, device="cuda"):
     """A ``save_tree`` file, its tensors on ``device``."""
     return torch.load(path, map_location=torch.device(device), weights_only=True)
 
@@ -178,13 +193,18 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 
 class Trainer:
-    """The training loop on one device."""
+    """The training loop, on one device or over the ranks of a mesh."""
 
     def __init__(self, spec: WavTokenizerSpec, tcfg: TrainConfig, train_data: DataConfig,
                  val_data: DataConfig | None = None, out_dir: str = "runs/default",
                  seed: int = 3407, log_every: int = 100, val_every: int = 10_000,
                  save_top_k: int = 10, limit_val_batches: int = 100,
-                 log_media_every: int = 1000, device="cuda"):
+                 log_media_every: int = 1000, device="cuda", model_parallel: int = 1,
+                 mesh=None):
+        """``mesh`` (``parallel/mesh.py::make_mesh``) defaults to one made
+        from the ``torchrun`` environment when ``WORLD_SIZE`` > 1 (the
+        process group joined here if it is not yet), with ``model_parallel``
+        or ``WT_MODEL_PARALLEL`` ranks on the model axis; else one device."""
         self.spec, self.tcfg = spec, tcfg
         self.train_data, self.val_data = train_data, val_data
         self.out_dir = out_dir
@@ -194,17 +214,35 @@ class Trainer:
         self.save_top_k = save_top_k
         self.limit_val_batches = limit_val_batches
         self.log_media_every = log_media_every
-        self.device = torch.device(device)
-        os.makedirs(out_dir, exist_ok=True)
-        self._metrics_f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+        self.model_parallel = int(os.environ.get("WT_MODEL_PARALLEL", model_parallel))
+        self._owns_group = False
+        if mesh is None and world_size_from_env() > 1:
+            if not torch.distributed.is_initialized():
+                init_distributed(device=device)
+                self._owns_group = True
+            mesh = make_mesh(self.model_parallel, device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        self.is_main = mesh is None or mesh.rank == 0
+        self._metrics_f = None
+        if self.is_main:
+            os.makedirs(out_dir, exist_ok=True)
+            self._metrics_f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
         self._topk: list[tuple[float, str]] = []
-        self.tb = TBLogger(os.path.join(out_dir, "tb"))
+        self.tb = TBLogger(os.path.join(out_dir, "tb") if self.is_main else None)
 
     def close(self) -> None:
-        self._metrics_f.close()
+        if self._metrics_f is not None:
+            self._metrics_f.close()
         self.tb.close()
+        if self._owns_group:
+            torch.distributed.destroy_process_group()
+            self._owns_group = False
 
     def log(self, record: dict) -> None:
+        """One JSONL record (rank 0 only)."""
+        if self._metrics_f is None:
+            return
         self._metrics_f.write(json.dumps(record) + "\n")
         self._metrics_f.flush()
 
@@ -358,12 +396,41 @@ class Trainer:
         reps = -(-want // batch.shape[0])
         return np.concatenate([batch] * reps, axis=0)[:want]
 
+    def _whole(self, state: dict) -> dict:
+        """The state with its tensor-parallel shards gathered (a collective
+        of every rank; the state itself without them)."""
+        return state if self.mesh is None else gather_train_state(self.mesh, state)
+
+    def _save(self, state: dict, step: int | None = None,
+              val_loss: float | None = None) -> None:
+        """``last.pt`` (and, with a val_loss, the top-k checkpoint of
+        ``step``) of the whole state, written by rank 0 while the others
+        wait."""
+        whole = self._whole(state)
+        if self.is_main:
+            if val_loss is not None:
+                self._save_topk(whole, step, val_loss)
+            save_checkpoint(os.path.join(self.out_dir, "last.pt"), whole)
+        barrier(self.mesh)
+
+    def _validate(self, state: dict, val_iter, step: int) -> float | None:
+        """Validation on rank 0 over the whole state, as one process runs
+        it; the other ranks wait at the barrier (None)."""
+        whole = self._whole(state)
+        val_loss = self.validate(whole, val_iter, step) if self.is_main else None
+        barrier(self.mesh)
+        return val_loss
+
     def fit(self, max_batches: int | None = None, state: dict | None = None,
             resume_path: str | None = None) -> dict:
         spec, tcfg = self.spec, self.tcfg
         if state is None:
             state = (self.resume_state(resume_path) if resume_path
                      else create_train_state(spec, tcfg, seed=self.seed, device=self.device))
+        mesh = self.mesh
+        if mesh is not None and mesh.size > 1:
+            state = shard_train_state(mesh, replicate_train_state(mesh, state))
+            self.log({"event": "mesh", "data": mesh.data, "model": mesh.model})
         total = max_batches if max_batches is not None else tcfg.max_steps // 2
         start = state["step"]
         # A resumed run's loader starts at the batch the interrupted run
@@ -380,28 +447,33 @@ class Trainer:
             # vq.py:103-108); the shipped n_q = 1 models use 1.
             n_q = (min(int(np.random.default_rng((self.seed + 1, step)).choice([4, 6, 8])),
                        spec.vq.n_q) if spec.vq.n_q > 1 else 1)
+            # Every rank holds the global batch; it trains on its own rows.
+            shard = batch_shard(mesh, len(batch), self.log)
             state, metrics = train_step(
-                state, self._audio(batch), spec, tcfg, step_generator(self.seed, step),
-                mel_coeff=mel_coeff_decay(tcfg, step + 1),
+                state, self._audio(batch[shard.start:shard.stop]), spec, tcfg,
+                step_generator(self.seed, step), mel_coeff=mel_coeff_decay(tcfg, step + 1),
                 train_discriminator=step >= tcfg.pretrain_mel_steps, n_q=n_q,
-                with_grad_norm=step % self.log_every == 0)
+                with_grad_norm=step % self.log_every == 0, shard=shard)
             if step % self.log_every == 0:
                 rec = {"step": step, **{k: float(v) for k, v in metrics.items()},
                        "sec_per_step": (time.time() - t_last) / max(1, self.log_every)}
                 t_last = time.time()
                 self.log(rec)
                 self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
-            if step > 0 and step % self.log_media_every == 0 and self.tb.enabled:
+            if step > 0 and step % self.log_media_every == 0:
                 self._log_train_media(state, batch, step)
             if val_iter is not None and step > 0 and step % self.val_every == 0:
-                self._save_topk(state, step, self.validate(state, val_iter, step))
-                save_checkpoint(os.path.join(self.out_dir, "last.pt"), state)
-        save_checkpoint(os.path.join(self.out_dir, "last.pt"), state)
+                self._save(state, step, self._validate(state, val_iter, step))
+        self._save(state)
         return state
 
     def _log_train_media(self, state: dict, batch: np.ndarray, step: int) -> None:
         """Audio and mel images every ``log_media_every`` steps (ref
-        experiment.py:195-216), from one more forward of the first row."""
+        experiment.py:195-216), from one more forward of the first row, on
+        rank 0 when TensorBoard logs."""
+        state = self._whole(state)
+        if not self.tb.enabled:
+            return
         audio = self._audio(batch[:1])
         with torch.no_grad():
             audio_hat, _, _ = generator_forward(state["gen"], state["vq"], self.spec, audio, 0,

@@ -19,6 +19,16 @@ Sample indices (k-means' initial means) come from an explicit CPU
 the same means; JAX draws them from its key, so the two packages' draws
 differ (the tests inject JAX's means).
 
+Under data parallelism (``group``, the data group of ``parallel/mesh.py``)
+the statistics are those of the global batch, as the JAX package computes
+them on the logically-global batch (``wavtokenizer_tpu/train/vq_train.py``)
+and the reference broadcasts its codebooks (core_vq.py:151,169): every
+rank's counts and sums are summed over the group before the EMA update, and
+k-means runs on the all-gathered rows, in rank order and so in the global
+batch's order, on every rank with the same generator, so that every rank
+derives the same means (each rank's searches run on its own card).  With one
+rank nothing changes.
+
 Dead-code expiry (ref core_vq.py:159-169) is not computed: in the reference
 its write to ``embed`` is overwritten by the EMA normalization at the end of
 the same forward (the quirk the JAX package reproduces by default), so it
@@ -31,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.vq import codebook_lookup, nearest_codebook_indices
+from ..parallel.mesh import all_gather, all_reduce_sum, group_rank
 
 
 def sample_indices(n: int, num: int, generator: torch.Generator | None) -> torch.Tensor:
@@ -84,29 +95,35 @@ def laplace_smoothing(x: torch.Tensor, n_categories: int, epsilon: float = 1e-5)
 @torch.no_grad()
 def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
                            generator: torch.Generator | None = None,
-                           init_means: torch.Tensor | None = None):
+                           init_means: torch.Tensor | None = None, group=None):
     """One EuclideanCodebook training forward (ref core_vq.py:206-231) for
     ONE layer.  state: {embed (C, D), embed_avg, cluster_size (C,), inited
-    (1,)}; x_flat (N, D), detached.  Returns (quantized (N, D), ids (N,)
-    int64, new state).
+    (1,)}; x_flat (N, D), detached, this rank's rows when ``group`` splits
+    the batch.  Returns (quantized (N, D), ids (N,) int64, new state).
 
-    An un-inited layer first runs k-means on x_flat (``init_means`` as
-    ``kmeans``' ``means``); its codes are then k-means' last assignment, the
-    same search on the same rows and means, so that search is not run
-    twice: kmeans_iters + 1 searches on the first batch, 1 after."""
+    An un-inited layer first runs k-means on x_flat, all-gathered over
+    ``group`` (``init_means`` as ``kmeans``' ``means``); its codes are then
+    k-means' last assignment, the same search on the same rows and means, so
+    that search is not run twice: kmeans_iters + 1 searches on the first
+    batch, 1 after.  The counts and sums of the EMA update are summed over
+    ``group``."""
     C = cfg.bins
     if float(state["inited"].reshape(())) > 0:
         embed, embed_avg = state["embed"], state["embed_avg"]
         cluster_size = state["cluster_size"]
         idx = nearest_codebook_indices(x_flat, embed).long()
     else:
-        embed, bins, idx = kmeans(x_flat, C, cfg.kmeans_iters, generator, init_means)
+        embed, bins, idx = kmeans(all_gather(x_flat, group), C, cfg.kmeans_iters, generator,
+                                  init_means)
+        n = x_flat.shape[0]
+        idx = idx[group_rank(group) * n:(group_rank(group) + 1) * n]
         embed_avg, cluster_size = embed, bins.to(x_flat.dtype)
     quantized = codebook_lookup(idx, embed)
 
     decay = cfg.decay
     counts = torch.bincount(idx, minlength=C).to(x_flat.dtype)
     embed_sum = torch.zeros_like(embed).index_add_(0, idx, x_flat)
+    all_reduce_sum([counts, embed_sum], group)
     cluster_size = cluster_size * decay + counts * (1 - decay)
     embed_avg = embed_avg * decay + embed_sum * (1 - decay)
     smoothed = laplace_smoothing(cluster_size, C) * cluster_size.sum()
@@ -117,7 +134,7 @@ def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
 
 
 def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, group=None):
     """LanguageVectorQuantization training forward (ref core_vq.py:378-401,
     VectorQuantization.forward :294-315).
 
@@ -126,7 +143,9 @@ def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
     and commitment as core_vq.py:301-311: q_st = x + sg(q - x),
     commit = mean((sg(q_st) - x)^2) * commitment_weight, averaged over the
     layers.  Returns (q_st (B, T, D), codes (n_q, B, T) int32, commit, new params);
-    layers >= n_q keep their state."""
+    layers >= n_q keep their state.  ``group``: the data group that splits
+    the batch (``codebook_train_forward``); the commitment loss stays this
+    rank's mean, which the step's gradient and metric reductions average."""
     n_q = min(n_q or cfg.n_q, cfg.n_q)
     B, T, D = x.shape
     x_flat = x.reshape(B * T, D)
@@ -135,7 +154,8 @@ def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
     q_st = None
     for q in range(n_q):
         layer = {k: v[q] for k, v in params.items()}
-        quantized, idx, new_layer = codebook_train_forward(layer, cfg, x_det, generator)
+        quantized, idx, new_layer = codebook_train_forward(layer, cfg, x_det, generator,
+                                                           group=group)
         q_st = x_flat + (quantized - x_flat).detach()
         losses.append(((q_st.detach() - x_flat) ** 2).mean() * cfg.commitment_weight)
         codes.append(idx.reshape(B, T).to(torch.int32))
