@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
+Builds the port's four CUDA kernels from csrc/ (one nvcc per source, started
 together), holds each kernel against its plain PyTorch version at the main
 path's shapes, gates the codes of the three golden configs against
 tests/golden/bench_tokens.npz, drives the small-320 codec round trip
@@ -77,6 +77,16 @@ and tools/extract_features.py with two against one; and the ConvNeXt
 kernel on 2 and 4 tensor-parallel slices of its hidden width, summed
 against the whole kernel and the plain block, and timed.
 
+Last, determinism ([18]): the segment-sum kernel, which sums the VQ's
+training statistics (k-means and the EMA) in a fixed order without float
+atomics, at 9000 x 4096 x 512 with skewed and with spread ids, equal bit
+for bit to index_add_ on the CPU and to its own second launch, timed
+beside its bound and index_add_ on the card; and the YAML's step run twice
+from one state under cuDNN's deterministic algorithms alone: every
+quantity equal.  The golden gate of [4] is the library's
+(utils/golden.py::check_codes); [12], [16] and [17] count the segment-sum
+launches too (202 on the first step, 2 a step after).
+
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -91,7 +101,6 @@ import os
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -704,6 +713,7 @@ def train_card_vs_cpu(K) -> dict:
         if dev == "cuda":
             torch.cuda.synchronize()
             out["launches"] = K.vq_nearest.launches
+            out["seg_launches"] = K.segment_sum.launches
         metrics[dev] = {k: float(v) for k, v in m.items()}
     rels = {k: rel_err(metrics["cuda"][k], v) for k, v in metrics["cpu"].items()}
     out["loss_rel"] = max(v for k, v in rels.items() if k != "grad_norm")
@@ -716,6 +726,9 @@ def train_card_vs_cpu(K) -> dict:
     check(all(np.isfinite(v) for v in metrics["cuda"].values()), f"non-finite losses {metrics}")
     check(out["launches"] == spec.vq.kmeans_iters + 2,
           f"first training step launched vq_nearest {out['launches']} times, expected "
+          f"{spec.vq.kmeans_iters + 2}")
+    check(out["seg_launches"] == spec.vq.kmeans_iters + 2,
+          f"first training step launched segment_sum {out['seg_launches']} times, expected "
           f"{spec.vq.kmeans_iters + 2}")
     check(out["loss_rel"] <= 1e-3,
           f"train step card vs CPU: {out['worst']} rel {out['loss_rel']:.3g}")
@@ -820,9 +833,10 @@ def train_timing(K) -> dict:
     torch.cuda.synchronize()
     out["first_ms"] = (time.perf_counter() - t0) * 1e3
     out["launches_first"] = K.vq_nearest.launches
+    out["seg_launches_first"] = K.segment_sum.launches
     out["first_metrics"] = {k: float(v) for k, v in m.items()}
     train_step(state, audio, spec, tcfg, step_generator(0, 1))       # warm-up
-    times, launches = [], []
+    times, launches, seg = [], [], []
     for step in (2, 3, 4):
         K.reset_launch_counts()
         torch.cuda.synchronize()
@@ -831,8 +845,9 @@ def train_timing(K) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches.append(K.vq_nearest.launches)
+        seg.append(K.segment_sum.launches)
         check(all(bool(torch.isfinite(v)) for v in m.values()), f"non-finite losses at step {step}")
-    out["step_ms"], out["launches_per_step"] = times, launches
+    out["step_ms"], out["launches_per_step"], out["seg_launches_per_step"] = times, launches, seg
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["metrics"] = {k: float(v) for k, v in m.items()}
     # The two phases of one more step, each timed alone (no dropout).
@@ -854,6 +869,11 @@ def train_timing(K) -> dict:
           f"first step launched vq_nearest {out['launches_first']} times, expected "
           f"{spec.vq.kmeans_iters + 2}")
     check(launches == [2, 2, 2], f"vq_nearest launches per later step {launches}, expected 2")
+    # segment_sum: one per k-means iteration and one per EMA forward (both phases).
+    check(out["seg_launches_first"] == spec.vq.kmeans_iters + 2,
+          f"first step launched segment_sum {out['seg_launches_first']} times, expected "
+          f"{spec.vq.kmeans_iters + 2}")
+    check(seg == [2, 2, 2], f"segment_sum launches per later step {seg}, expected 2")
     check(all(np.isfinite(v) for v in out["first_metrics"].values()),
           "non-finite first-step losses")
     return out
@@ -1730,6 +1750,9 @@ def options_phase(K, rt_ms: float) -> dict:
     torch.cuda.synchronize()
     out["first_ms"] = (time.perf_counter() - t0) * 1e3
     out["first_launches"] = K.vq_nearest.launches
+    out["first_seg_launches"] = K.segment_sum.launches
+    check(out["first_seg_launches"] == spec.vq.kmeans_iters + 2,
+          f"first step: segment_sum launches {out['first_seg_launches']}")
     codes_seen = []
     real_forward = S.vq_train_forward
 
@@ -1746,7 +1769,7 @@ def options_phase(K, rt_ms: float) -> dict:
             st = _copy_state(S, base, cfg)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            r = {"ms": [], "launches": []}
+            r = {"ms": [], "launches": [], "seg_launches": []}
             for step in (1, 2):
                 codes_seen.clear()
                 K.reset_launch_counts()
@@ -1756,6 +1779,7 @@ def options_phase(K, rt_ms: float) -> dict:
                 torch.cuda.synchronize()
                 r["ms"].append((time.perf_counter() - t0) * 1e3)
                 r["launches"].append(K.vq_nearest.launches)
+                r["seg_launches"].append(K.segment_sum.launches)
                 if step == 1:
                     r["metrics"] = {k: float(v) for k, v in m.items()}
                     grads[name] = _flat_grads(st["opt_gen"])
@@ -1774,6 +1798,8 @@ def options_phase(K, rt_ms: float) -> dict:
     for name, r in modes.items():
         check(all(np.isfinite(v) for v in r["metrics"].values()), f"{name}: non-finite {r}")
         check(r["launches"] == [2, 2], f"{name}: vq_nearest launches per step {r['launches']}")
+        check(r["seg_launches"] == [2, 2],
+              f"{name}: segment_sum launches per step {r['seg_launches']}")
         check(len(codes[name]) == 2 and all(torch.equal(a, b) for a, b in
                                             zip(codes[name], codes["fp32"])),
               f"{name}: the step's codes differ from the fp32 step's")
@@ -1869,11 +1895,9 @@ def options_phase(K, rt_ms: float) -> dict:
 # extraction with two replicas on this card; (d) the ConvNeXt kernel on
 # tensor-parallel slices of its hidden width.
 # (a): the step of a group of one against the plain step from one state,
-# with PyTorch's deterministic algorithms where they exist (cuDNN's, and
-# index_add_'s for the VQ statistics, which the generator phase reads).
-# Reflection padding's backward has none: its atomics stay, and AdamW turns
-# their rounding in near-zero gradients into moves of up to the learning
-# rate; so each quantity is held to 1e-6 relative or to 4x the plain step's
+# with cuDNN's deterministic algorithms alone (the VQ statistics, which the
+# generator phase reads, go through the segment-sum kernel, in a fixed
+# order); each quantity is held to 1e-6 relative or to 4x the plain step's
 # difference from its own repeat, whichever is larger.
 NCCL_STEP_TOL = 1e-6
 MULTI_B = 8                 # (b): the global batch, 4 rows a rank
@@ -1938,37 +1962,32 @@ def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
     base = S.create_train_state(spec, tcfg, seed=0, device=dev)
     S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
     out = {"B": B, "T": T}
-    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
+    det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)   # "... no deterministic ..."
-            plain = [S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
-                                  step_generator(0, 1), with_grad_norm=True) for _ in range(2)]
-            M.init_distributed(backend, dev, f"tcp://127.0.0.1:{_free_port()}", 0, 1)
-            try:
-                mesh = M.make_mesh(1, dev)
-                out["backend"] = dist.get_backend(mesh.data_group)
-                M.COLLECTIVES.clear()
-                K.reset_launch_counts()
-                state = M.shard_train_state(mesh, M.replicate_train_state(
-                    mesh, _copy_state(S, base, tcfg)))
-                shard = M.batch_shard(mesh, B)
-                dist_step = S.train_step(state, audio[shard.start:shard.stop], spec, tcfg,
-                                         step_generator(0, 1), with_grad_norm=True,
-                                         shard=shard)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                out["collectives"] = dict(M.COLLECTIVES)
-                out["launches"] = K.vq_nearest.launches
-                dist.barrier()
-            finally:
-                dist.destroy_process_group()
+        plain = [S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
+                              step_generator(0, 1), with_grad_norm=True) for _ in range(2)]
+        M.init_distributed(backend, dev, f"tcp://127.0.0.1:{_free_port()}", 0, 1)
+        try:
+            mesh = M.make_mesh(1, dev)
+            out["backend"] = dist.get_backend(mesh.data_group)
+            M.COLLECTIVES.clear()
+            K.reset_launch_counts()
+            state = M.shard_train_state(mesh, M.replicate_train_state(
+                mesh, _copy_state(S, base, tcfg)))
+            shard = M.batch_shard(mesh, B)
+            dist_step = S.train_step(state, audio[shard.start:shard.stop], spec, tcfg,
+                                     step_generator(0, 1), with_grad_norm=True, shard=shard)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out["collectives"] = dict(M.COLLECTIVES)
+            out["launches"] = K.vq_nearest.launches
+            out["seg_launches"] = K.segment_sum.launches
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
     finally:
-        torch.backends.cudnn.deterministic = det[0]
-        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+        torch.backends.cudnn.deterministic = det
     out["rel"] = _step_diff(dist_step, plain[0])
     out["floor"] = _step_diff(plain[1], plain[0])
     out["grad_norm"] = (float(dist_step[1]["grad_norm"]), float(plain[0][1]["grad_norm"]))
@@ -1977,6 +1996,7 @@ def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
     check(out["collectives"].get("all_reduce", 0) >= 5 and out["collectives"].get("broadcast"),
           f"collectives of the distributed step: {out['collectives']}")
     check(out["launches"] == 2, f"vq_nearest launches {out['launches']}, expected 2")
+    check(out["seg_launches"] == 2, f"segment_sum launches {out['seg_launches']}, expected 2")
     for k, v in out["rel"].items():
         limit = max(NCCL_STEP_TOL, 4 * out["floor"][k])
         check(v <= limit, f"NCCL step vs plain step: {k} {v:.3g} (limit {limit:.3g})")
@@ -2246,6 +2266,87 @@ def tp_shards_phase(K, block: dict, T_frames: int, dev: str = "cuda") -> dict:
     return out
 
 
+# [18]: the VQ's training statistics without float atomics.  (a) The
+# segment-sum kernel at the training shape (9000 rows = 40 x 3 s of
+# small-320 frames, 4096 codes of 512) with skewed ids (every row to code
+# 573, where the random weights send them) and spread ids (uniform): equal
+# to index_add_ on the CPU and to its own second launch, bit for bit; timed
+# beside its bound, its plain version on the card (zeros + index_add_, float
+# atomics) and index_add_ alone.  (b) The YAML's step from one state past its
+# first step, twice, under cuDNN's deterministic algorithms alone: metrics,
+# gradients, weights and VQ state equal (0).
+SEGMENT_SHAPE = (9000, 4096, 512)
+
+
+def determinism_phase(K, dev: str = "cuda") -> dict:
+    import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch.train.trainer import step_generator
+    from wavtokenizer_tpu_torch.utils.profiling import segment_sum_bound
+
+    N, C, D = SEGMENT_SHAPE
+    rng = np.random.default_rng(18)
+    # Rows of very different scales, so that any other order of the adds
+    # shows in the rounding.
+    rows = torch.as_tensor((rng.normal(size=(N, D)) * 10.0 ** rng.uniform(-3, 3, size=(N, 1)))
+                           .astype(np.float32))
+    out = {"N": N, "C": C, "D": D, "ids": {}}
+    out["bound_ms"], out["bound_by"] = segment_sum_bound(N, C, D)
+    for kind, ids in (("skewed", torch.full((N,), 573)),
+                      ("spread", torch.as_tensor(rng.integers(0, C, N)))):
+        want = K.segment_sum_reference(rows, ids, C)
+        x, i = rows.to(dev), ids.to(dev)
+        a, b = K.segment_sum(x, i, C), K.segment_sum(x, i, C)
+        atomics = K.segment_sum_reference(x, i, C)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        r = {"cpu_equal": torch.equal(a.cpu(), want), "repeat_equal": torch.equal(a, b),
+             "max_abs_err": float((a.cpu() - want).abs().max()),
+             "plain_card_err": float((atomics.cpu() - want).abs().max())}
+        check(r["cpu_equal"], f"segment_sum {kind}: differs from index_add_ on the CPU by "
+                              f"{r['max_abs_err']:.3g}")
+        check(r["repeat_equal"], f"segment_sum {kind}: two launches differ")
+        # Timed as the training path calls it, with the ids' counts at hand
+        # (k-means and the EMA compute them anyway): the sort, the offsets
+        # and the kernel.
+        zeros, counts = torch.zeros(C, D, device=dev), torch.bincount(i, minlength=C)
+        r["ms"] = cuda_ms(lambda: K.segment_sum(x, i, C, counts), 20)
+        r["plain_ms"] = cuda_ms(lambda: K.segment_sum_reference(x, i, C), 20)
+        r["library_ms"] = cuda_ms(lambda: zeros.index_add_(0, i, x), 20)
+        split, _ = traced(lambda: K.segment_sum(x, i, C, counts))
+        kern = [v for name, v in split.items() if "segment_sum_kernel" in name]
+        check(len(kern) == 1, f"segment_sum {kind}: the trace holds {kern} kernel events")
+        r["kernel_ms"] = kern[0][0]
+        r["profile"] = kernel_lines(split, 8)
+        out["ids"][kind] = r
+    del rows, x, i, a, b, atomics, zeros, counts
+
+    spec, tcfg, data, _ = _train_yaml()
+    B, T = data.batch_size, data.num_samples
+    audio = torch.as_tensor((np.random.default_rng(19).normal(size=(B, T)) * 0.1)
+                            .astype(np.float32)).to(dev)
+    base = S.create_train_state(spec, tcfg, seed=0, device=dev)
+    S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        check(not torch.are_deterministic_algorithms_enabled(),
+              "torch.use_deterministic_algorithms is on")
+        runs, out["step_launches"] = [], []
+        for _ in range(2):
+            K.reset_launch_counts()
+            runs.append(S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
+                                     step_generator(0, 1), with_grad_norm=True))
+            out["step_launches"].append(K.segment_sum.launches)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["B"], out["T"] = B, T
+    out["repeat"] = _step_diff(runs[1], runs[0])
+    check(out["step_launches"] == [2, 2], f"segment_sum launches {out['step_launches']}")
+    check(all(v == 0 for v in out["repeat"].values()),
+          f"the step against its repeat: {out['repeat']} (expected 0)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -2256,9 +2357,9 @@ def main() -> int:
         from wavtokenizer_tpu_torch.models.seanet import encoder_layer_specs
         from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
         from wavtokenizer_tpu_torch.ops import kernels as K
-        from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
-                                                         load_golden, max_flips,
-                                                         nearest_two)
+        from wavtokenizer_tpu_torch.utils.golden import (check_codes, golden_clip,
+                                                         golden_specs, load_golden,
+                                                         max_flips, nearest_two)
         from wavtokenizer_tpu_torch.utils.profiling import (FRONT_FP32_MACS_PER_SAMPLE,
                                                             FRONT_TF32_MACS_PER_SAMPLE, H100,
                                                             convnext_bound, front_bound_of,
@@ -2357,23 +2458,23 @@ def main() -> int:
     log("[3 parity] encoder_front: not launched for T=72004 (T % 8 != 0)")
 
     # -- 4. golden gate on the card ---------------------------------------
+    # The library's gate (utils/golden.py::check_codes): each config's model
+    # built on the card from seed 0, the golden clip encoded, its codes held
+    # to the committed ones (shape, and at most max_flips(n) differing ids).
     golden = load_golden()
-    for label, spec in golden_specs().items():
-        m = model if label == "small320" else WavTokenizer.from_jax_params(
-            init_wavtokenizer(spec, seed=0, random_codebook=True), spec, device="cuda")
+    for label in golden_specs():
+        n = golden[label].size
         before = K.encoder_front.launches
-        _, codes = m.encode_infer(golden_clip(spec))
+        try:
+            flips = check_codes(label, max_flips=max_flips(n), device="cuda")
+        except RuntimeError as e:
+            raise PhaseFailed(str(e)) from e
         front = K.encoder_front.launches - before
         check(front == (0 if label == "small600" else 1),
               f"{label}: encoder_front launched {front} times")
-        want = golden[label]
-        check(tuple(codes.shape) == want.shape, f"{label}: codes shape {tuple(codes.shape)}")
-        flips = int((codes.cpu().numpy() != want).sum())
-        check(flips <= max_flips(want.size), f"{label}: {flips} flips")
-        log(f"[4 golden] {label}: {flips} of {want.size} ids differ from "
-            f"tests/golden/bench_tokens.npz (limit {max_flips(want.size)}); "
+        log(f"[4 golden] {label}: check_codes on the card: {flips} of {n} ids differ from "
+            f"tests/golden/bench_tokens.npz (limit {max_flips(n)}); "
             f"front kernel {'launched' if front else 'not launched (geometry)'}")
-        del m
 
     # -- 5. the main path on the card, against the CPU --------------------
     clip = golden_clip(small320)
@@ -2603,7 +2704,8 @@ def main() -> int:
         f"differ (near-ties only; largest gap {tr['kmeans_gap']:.3g}), means rel-max "
         f"{tr['kmeans_means_rel']:.3g}; losses rel-max {tr['loss_rel']:.3g} ({tr['worst']}; "
         f"limit 1e-3), grad norm rel {tr['grad_norm_rel']:.3g} (limit 1e-3), VQ state rel-max "
-        f"{tr['vq_rel']:.3g} (limit 1e-4); vq_nearest launches {tr['launches']}; card {card}")
+        f"{tr['vq_rel']:.3g} (limit 1e-4); vq_nearest launches {tr['launches']}, segment_sum "
+        f"{tr['seg_launches']}; card {card}")
     tt = train_timing(K)
     log(f"[12 train] (b) vq_nearest at k-means' shape N={tt['N']} (encoder output of "
         f"{tt['B']} x {tt['T']}) C={tt['C']} D={tt['D']}, means drawn with replacement: "
@@ -2625,7 +2727,8 @@ def main() -> int:
         f"({tt['disc_ms'] / (tt['disc_ms'] + tt['gen_ms']):.3f} / "
         f"{tt['gen_ms'] / (tt['disc_ms'] + tt['gen_ms']):.3f}); peak memory "
         f"{tt['peak_gb']:.2f} GB (max_memory_allocated); vq_nearest launches first step "
-        f"{tt['launches_first']}, later steps {tt['launches_per_step']}; card {card}")
+        f"{tt['launches_first']}, later steps {tt['launches_per_step']}; segment_sum first step "
+        f"{tt['seg_launches_first']}, later steps {tt['seg_launches_per_step']}; card {card}")
     log(f"[12 train] (c) losses: first step " + ", ".join(
         f"{k} {v:.4g}" for k, v in tt["first_metrics"].items()) + "; last timed step "
         + ", ".join(f"{k} {v:.4g}" for k, v in tt["metrics"].items()))
@@ -2737,13 +2840,15 @@ def main() -> int:
     log(f"[16 options] (b) first step of {TRAIN_CONFIG} at {op['B']} x {op['T']}: "
         f"{op['first_ms']:.1f} ms = k-means alone ({op['first_launches'] - 2} iterations) "
         f"{op['kmeans_ms']:.1f} ms + the rest {op['first_ms'] - op['kmeans_ms']:.1f} ms; "
-        f"vq_nearest launches {op['first_launches']}; card {card}")
+        f"vq_nearest launches {op['first_launches']}, segment_sum {op['first_seg_launches']}; "
+        f"card {card}")
     for name, r in op["modes"].items():
         worst = max(r["rel"], key=r["rel"].get)
         log(f"[16 options] (b) {name}: steps {r['ms'][0]:.1f}, {r['ms'][1]:.1f} ms "
             f"({op['B'] * op['T'] / small320.sample_rate / (r['ms'][1] / 1e3):.2f} audio-s/s), "
             f"peak {r['peak_gb']:.2f} GB (max_memory_allocated, a copy of the state beside "
-            f"it), vq_nearest launches {r['launches']}; the whole step against fp32: gradient cosine "
+            f"it), vq_nearest launches {r['launches']}, segment_sum {r['seg_launches']}; the whole "
+            f"step against fp32: gradient cosine "
             f"{r['grad_cos']:.6f}, worst {worst} rel {r['rel'][worst]:.3g}; card {card}")
     log(f"[16 options] (b) losses, fp32 step: " + ", ".join(
         f"{k} {v:.5g}" for k, v in fp32["metrics"].items()) + f"; codes equal in all "
@@ -2783,12 +2888,12 @@ def main() -> int:
     nc = nccl_world_one(K)
     log(f"[17 multicard] (a) NCCL group of one rank (in process, TCP on localhost): one step of "
         f"{TRAIN_CONFIG} at {nc['B']} x {nc['T']} from a state past its first step, against the "
-        f"plain step (deterministic algorithms where they exist, for both), relative: " + ", ".join(
+        f"plain step (cuDNN's deterministic algorithms, for both), relative: " + ", ".join(
             f"{k} {v:.3g}" for k, v in nc["rel"].items()) + "; the plain step against its "
         f"repeat: " + ", ".join(f"{k} {v:.3g}" for k, v in nc["floor"].items())
         + f" (limits: {NCCL_STEP_TOL} or 4x that); grad norm {nc['grad_norm'][0]:.8g} / "
         f"{nc['grad_norm'][1]:.8g}; collectives {nc['collectives']} over {nc['backend']}; "
-        f"vq_nearest launches {nc['launches']}; card {card}")
+        f"vq_nearest launches {nc['launches']}, segment_sum {nc['seg_launches']}; card {card}")
     torch.cuda.empty_cache()
     gl = gloo_two_ranks()
     log(f"[17 multicard] (b) two spawned ranks over gloo on this card (CUDA tensors staged "
@@ -2823,6 +2928,27 @@ def main() -> int:
             f"(bound {r['bound_ms']:.4f} ms) against the whole kernel {tps['whole_ms']:.4f} ms "
             f"(bound {tps['whole_bound_ms']:.4f} ms); card {card}")
     log(f"[17 multicard] phase time {time.perf_counter() - t17:.1f} s")
+
+    # -- 18. determinism: the VQ's training statistics without atomics ----
+    t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dt = determinism_phase(K)
+    for ids_kind, r in dt["ids"].items():
+        log(f"[18 determinism] (a) segment_sum N={dt['N']} C={dt['C']} D={dt['D']}, {ids_kind} ids: "
+            f"equal to index_add_ on the CPU bit for bit ({r['cpu_equal']}; max abs err "
+            f"{r['max_abs_err']:.3g}), two launches equal ({r['repeat_equal']}); index_add_ on "
+            f"the card (float atomics) against the CPU max abs err {r['plain_card_err']:.3g}; "
+            f"wrapper with the counts given (sort, offsets, kernel) {r['ms']:.4f} ms, the kernel alone (trace) "
+            f"{r['kernel_ms']:.4f} ms, bound {dt['bound_ms']:.4f} ms ({dt['bound_by']}), plain "
+            f"(zeros + index_add_) {r['plain_ms']:.4f} ms, index_add_ alone {r['library_ms']:.4f} "
+            f"ms; card {card}")
+        log(f"[18 profile] segment_sum {ids_kind}: {r['profile']}")
+    log(f"[18 determinism] (b) {TRAIN_CONFIG} at {dt['B']} x {dt['T']}, one state past its first "
+        f"step, the step twice under cudnn.deterministic alone (no "
+        f"use_deterministic_algorithms): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in dt["repeat"].items())
+        + f" (limit 0); segment_sum launches {dt['step_launches']}; card {card}")
+    log(f"[18 determinism] phase time {time.perf_counter() - t18:.1f} s")
 
     rows = [
         {"name": "vq_nearest", "route": "cuda",
@@ -2870,6 +2996,20 @@ def main() -> int:
                      "bound_by": rs["front_bound_by"], "max_abs_err": rs["front_err"],
                      "launches_per_forward": rs["fwd"][True]["launches"],
                      "launches_per_step": {m: r["launches"] for m, r in rs["steps"].items()}}},
+        {"name": "segment_sum", "route": "cuda",
+         "source": "wavtokenizer_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "wavtokenizer_tpu/train/vq_train.py:54,111 (jax.ops.segment_sum: not a "
+                     "Pallas kernel)",
+         "launches": tt["seg_launches_first"],
+         "max_abs_err": max(r["max_abs_err"] for r in dt["ids"].values()),
+         "ms": dt["ids"]["skewed"]["ms"], "plain_ms": dt["ids"]["skewed"]["plain_ms"],
+         "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"],
+         "library_ms": dt["ids"]["skewed"]["library_ms"],
+         "N": dt["N"], "C": dt["C"], "D": dt["D"], "ids": "skewed",
+         "kernel_ms": dt["ids"]["skewed"]["kernel_ms"],
+         "launches_per_step": tt["seg_launches_per_step"][-1],
+         "spread": {k: dt["ids"]["spread"][k]
+                    for k in ("ms", "kernel_ms", "plain_ms", "library_ms", "max_abs_err")}},
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -329,7 +329,8 @@ def _tiny_training():
 def test_training_vq_launches_per_step(cuda):
     """kmeans_iters + 2 searches on the first step (k-means' iterations and
     last assignment, which the first codebook forward reuses as its codes,
-    and the generator phase's forward), then 2 a step."""
+    and the generator phase's forward), then 2 a step; as many segment sums
+    (k-means' iterations and the two phases' EMA forwards)."""
     from wavtokenizer_tpu_torch.train.step import create_train_state, train_step
 
     spec, tcfg = _tiny_training()
@@ -337,19 +338,28 @@ def test_training_vq_launches_per_step(cuda):
     audio = (torch.randn(2, 12160, generator=torch.Generator().manual_seed(1)) * 0.1).to(cuda)
     counts = []
     for step in range(3):
-        before = K.vq_nearest.launches
+        K.reset_launch_counts()
         state, m = train_step(state, audio, spec, tcfg, torch.Generator().manual_seed(step))
         torch.cuda.synchronize()
-        counts.append(K.vq_nearest.launches - before)
+        counts.append((K.vq_nearest.launches, K.segment_sum.launches))
         assert all(bool(torch.isfinite(v)) for v in m.values())
-    assert counts == [spec.vq.kmeans_iters + 2, 2, 2]
+    # The segment sums: one per k-means iteration, one per EMA forward.
+    first = spec.vq.kmeans_iters + 2
+    assert counts == [(first, first), (2, 2), (2, 2)]
 
 
 def test_train_step_card_matches_cpu(cuda):
     """Two steps from one state on the card and on the CPU, TF32 off: every
     metric within rel 1e-3 (fp32 in other orders, and the card's VQ search
     is the kernel).  The codebook is inited around the encoder's output so
-    that its codes are well separated in fp32."""
+    that its codes are well separated in fp32.
+
+    The card runs cuDNN's deterministic algorithms, so that its steps repeat
+    bit for bit (the VQ's sums and the STFT's backward do without float
+    atomics): the second step holds a VQ near-tie (one row of the
+    discriminator phase 1.1e-5 from two codes, relative) that the CPU itself
+    tips under a 1e-7 relative change of the input, and run-to-run rounding
+    on the card tipped it too, the commit loss then 1% off."""
     from wavtokenizer_tpu_torch.models.seanet import seanet_encode
     from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
     from wavtokenizer_tpu_torch.train.step import (create_train_state, train_step, tree_map)
@@ -367,17 +377,102 @@ def test_train_step_card_matches_cpu(cuda):
                  "cluster_size": torch.ones(1, 32), "inited": torch.ones(1, 1)}
     card = create_train_state(spec, tcfg, seed=0, device=cuda)
     card["vq"] = tree_map(lambda t: t.to(cuda), cpu["vq"])
-    with full_fp32():
-        for step in range(2):
-            _, m_cpu = train_step(cpu, audio, spec, tcfg, torch.Generator().manual_seed(step),
-                                  bandwidth_id=step + 1)
-            _, m_card = train_step(card, audio.to(cuda), spec, tcfg,
-                                   torch.Generator().manual_seed(step), bandwidth_id=step + 1)
-            for k, v in m_cpu.items():
-                assert abs(float(m_card[k]) - float(v)) <= 1e-3 * abs(float(v)), (step, k)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with full_fp32():
+            for step in range(2):
+                _, m_cpu = train_step(cpu, audio, spec, tcfg,
+                                      torch.Generator().manual_seed(step), bandwidth_id=step + 1)
+                _, m_card = train_step(card, audio.to(cuda), spec, tcfg,
+                                       torch.Generator().manual_seed(step), bandwidth_id=step + 1)
+                for k, v in m_cpu.items():
+                    assert abs(float(m_card[k]) - float(v)) <= 1e-3 * abs(float(v)), (step, k)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     for k in cpu["vq"]:
         want = cpu["vq"][k]
         assert float((card["vq"][k].cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The VQ's training statistics: segment sums without float atomics
+# ---------------------------------------------------------------------------
+
+def _segment_inputs(n, c, d, kind):
+    rng = np.random.default_rng(n + c + d)
+    rows = (rng.normal(size=(n, d)) * 10.0 ** rng.uniform(-3, 3, size=(n, 1))).astype(np.float32)
+    if kind == "skewed":          # every row to one code, as under random weights
+        ids = np.full(n, 573 % c)
+    elif kind == "spread":
+        ids = rng.integers(0, c, n)
+    else:                         # one heavy code, the rest spread over every third code
+        ids = rng.choice(np.arange(0, c, 3), n)
+        ids[rng.random(n) < 0.6] = c // 2
+    return torch.from_numpy(rows), torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("n,c,d,kind", [(700, 40, 40, "mixed"), (5, 33, 8, "spread"),
+                                        (9000, 4096, 512, "skewed"),
+                                        (9000, 4096, 512, "spread")])
+def test_segment_sum_kernel_bit_equal_to_cpu(cuda, n, c, d, kind):
+    """The kernel against ``index_add_`` on the CPU on the same inputs, bit
+    for bit (the same order of fp32 adds), and against itself across
+    launches; at a small shape (ragged columns and code groups) and at the
+    training shape (40 x 3 s of small-320 frames, 4096 codes of 512)."""
+    rows, ids = _segment_inputs(n, c, d, kind)
+    want = K.segment_sum_reference(rows, ids, c)
+    x, i = rows.to(cuda), ids.to(cuda)
+    before = K.segment_sum.launches
+    a = K.segment_sum(x, i, c)
+    b = K.segment_sum(x, i.int(), c, torch.bincount(i, minlength=c))
+    torch.cuda.synchronize()
+    assert K.segment_sum.launches == before + 2
+    assert torch.equal(a.cpu(), want)
+    assert torch.equal(b, a)
+
+
+def test_segment_sum_kernel_refuses_what_it_cannot_take(cuda):
+    rows, ids = _segment_inputs(50, 8, 16, "spread")
+    x, i = rows.to(cuda), ids.to(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        K.segment_sum(x.double(), i, 8)
+    with pytest.raises(ValueError, match="integer"):
+        K.segment_sum(x, i.float(), 8)
+    with pytest.raises(ValueError, match="more than num_segments"):
+        K.segment_sum(x, i, 4)
+    assert torch.equal(K.segment_sum(x[:0], i[:0], 8).cpu(), torch.zeros(8, 16))
+
+
+def test_stft_gradient_repeats_on_the_card(cuda):
+    """The STFT of the mel loss and the spectral discriminators
+    (``ops/spectral.py::stft``, framed by ``unfold``) gives the same gradient
+    on every run, bit for bit, at the mel loss's shape (40 x 3 s, n_fft 1024,
+    hop 256); beside it, printed, torch.stft's (framed by ``as_strided``,
+    whose backward sums by float atomics on the card)."""
+    from wavtokenizer_tpu_torch.ops.spectral import hann_window, stft
+
+    g = torch.Generator().manual_seed(5)
+    x0 = (torch.randn(40, 72000, generator=g) * 0.1).to(cuda)
+    up = torch.randn(40, 282, 513, generator=g).to(cuda)
+    w = torch.from_numpy(hann_window(1024)).to(cuda)
+
+    def grad(f):
+        x = x0.clone().requires_grad_(True)
+        (f(x).abs() * up).sum().backward()
+        return x.grad
+
+    port = [grad(lambda x: stft(x, 1024, 256)) for _ in range(2)]
+    plain = [grad(lambda x: torch.stft(x, 1024, 256, 1024, w, center=True, pad_mode="reflect",
+                                       onesided=True, return_complex=True).transpose(1, 2))
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    print(f"STFT gradient, run against run on the card: the port's {rel(port[1], port[0]):.3g}, "
+          f"torch.stft's {rel(plain[1], plain[0]):.3g}; the port's against torch.stft's "
+          f"{rel(port[0], plain[0]):.3g}")
+    assert torch.equal(port[1], port[0])
+    assert rel(port[0], plain[0]) <= 1e-5
 
 
 # The plain-Vocos family at the vocos-mel-24khz width (C = 512, I = 1536),

@@ -225,5 +225,5 @@ def test_check_env_cli(capsys):
     assert out.strip().endswith("OK") and "native data loader" in out
     # What it runs on the card, with the plain versions on both sides here.
     checks = check_env.kernel_checks(torch.device("cpu"))
-    assert set(checks) == {"vq_nearest", "convnext_block", "encoder_front"}
+    assert set(checks) == {"vq_nearest", "convnext_block", "encoder_front", "segment_sum"}
     assert all(ok for ok, _ in checks.values())

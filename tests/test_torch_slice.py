@@ -23,8 +23,8 @@ from wavtokenizer_tpu_torch import (ISTFTHeadConfig, SEANetConfig, VQConfig,
                                     WavTokenizerSpec, init_wavtokenizer)
 from wavtokenizer_tpu_torch.checkpoint.convert import (TrackedStateDict,
                                                        convert_wavtokenizer_state_dict)
-from wavtokenizer_tpu_torch.utils.golden import (golden_clip, golden_specs,
-                                                 load_golden, max_flips)
+from wavtokenizer_tpu_torch.utils import golden
+from wavtokenizer_tpu_torch.utils.golden import golden_specs, load_golden, max_flips
 
 SMALL = dict(seanet=dict(n_filters=8, dimension=32, ratios=(4, 2, 2, 2)),
              vq=dict(dimension=32, bins=64),
@@ -115,16 +115,25 @@ def test_numpy_init_bit_equal_to_jax(label):
 
 
 @pytest.mark.parametrize("label", ["small320", "small600", "music16k"])
-def test_cpu_codes_match_golden(label):
+def test_cpu_codes_match_golden(label, monkeypatch, tmp_path):
+    """The CPU's codes through the library gate, ``utils/golden.py::
+    check_codes``, computed once (``compute_codes``) and reused for a copy
+    of the golden file with one id changed, which the gate must refuse."""
     spec = golden_specs()[label]
-    model = WavTokenizer.from_jax_params(init_wavtokenizer(spec, seed=0, random_codebook=True),
-                                         spec, device="cpu")
-    _, codes = model.encode_infer(golden_clip(spec))
+    codes = golden.compute_codes(spec, device="cpu")
     want = load_golden()[label]
     assert codes.shape == want.shape
-    flips = int((codes.numpy() != want).sum())
+    flips = int((codes != want).sum())
     print(f"{label}: {flips} of {want.size} ids differ from the golden tokens")
+    monkeypatch.setattr(golden, "compute_codes", lambda s, device: codes)
+    assert golden.check_codes(label, max_flips=max_flips(want.size), device="cpu") == flips
     assert flips <= max_flips(want.size), flips
+    tampered = load_golden()
+    tampered[label] = codes.copy()
+    tampered[label][0, -1, -1] = (codes[0, -1, -1] + 1) % spec.vq.bins
+    np.savez(tmp_path / "tampered.npz", **tampered)
+    with pytest.raises(RuntimeError, match="1 differing ids"):
+        golden.check_codes(label, str(tmp_path / "tampered.npz"), device="cpu")
 
 
 def test_from_state_dict_covers_every_key_and_matches_jax_converter():

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the codec's hot ops, and their plain versions.
 
-Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
+Four kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
 
 * ``vq_nearest`` (``csrc/vq_nearest.cu``) replaces the Pallas kernel
   ``wavtokenizer_tpu/ops/kernels.py::vq_nearest_fused``: the distance
@@ -16,6 +16,11 @@ Three kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
   encoder layers 0-6 of the small-320 geometry in one launch with every
   intermediate in shared memory: layers 0-5 as fp32 FMAs, the last conv as
   3xTF32 on the tensor cores (fp32-class accuracy).
+* ``segment_sum`` (``csrc/segment_sum.cu``) replaces no Pallas kernel: the
+  VQ training's k-means and EMA sums, which the JAX package takes with
+  ``jax.ops.segment_sum`` (``wavtokenizer_tpu/train/vq_train.py:54,111``),
+  in ascending row order per code without float atomics, so that the
+  card's sums equal the CPU's bit for bit and a training step repeats.
 
 Each source is built at first use by its own ``nvcc`` call, all started
 together (the shared header ``csrc/hopper.cuh`` is part of every source's
@@ -67,6 +72,7 @@ ENTRY_POINTS = {
     },
     "encoder_front.cu": {
         "wt_encoder_front": [_vp] * 6 + [_i, _i, _vp]},
+    "segment_sum.cu": {"wt_segment_sum": [_vp] * 4 + [_i, _i, _vp]},
 }
 
 _lib = None
@@ -407,7 +413,75 @@ def encoder_front(audio: torch.Tensor, params: list, specs: list) -> torch.Tenso
 encoder_front.launches = 0
 encoder_front.flops = 0
 
-WRAPPERS = (vq_nearest, convnext_block, encoder_front)
+# ---------------------------------------------------------------------------
+# Segment sum (the VQ's training statistics)
+# ---------------------------------------------------------------------------
+
+def segment_sum_reference(rows: torch.Tensor, ids: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """Plain version: ``index_add_`` into zeros.  On the CPU it adds each
+    row in ascending row order, as XLA:CPU's scatter does; on CUDA it lowers
+    to float atomics, whose order changes from run to run."""
+    out = torch.zeros(num_segments, rows.shape[1], dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, ids, rows)
+
+
+def segment_order(ids: torch.Tensor, num_segments: int,
+                  counts: torch.Tensor | None = None) -> tuple:
+    """The kernel's order of the rows: (perm (N,) int32, offsets (C + 1,)
+    int32), code c's rows being ``perm[offsets[c]:offsets[c + 1]]`` in
+    ascending row order.  ``perm`` is a stable sort by id (a unique
+    permutation); ``offsets`` the prefix sum of ``counts``, the ids'
+    ``bincount(minlength=C)`` (computed here when not given), all integer."""
+    if counts is None:
+        counts = torch.bincount(ids, minlength=num_segments)
+    if counts.shape != (num_segments,):
+        raise ValueError(f"segment_sum: ids reach {counts.shape[0]} segments, more than "
+                         f"num_segments={num_segments}")
+    perm = torch.sort(ids, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(num_segments + 1, dtype=torch.int32, device=ids.device)
+    offsets[1:] = counts.cumsum(0)
+    return perm, offsets
+
+
+def segment_sum(rows: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                counts: torch.Tensor | None = None) -> torch.Tensor:
+    """rows (N, D) f32, ids (N,) integer in [0, num_segments) -> (C, D) f32:
+    the sum of each segment's rows, in ascending row order from +0.0.
+
+    ``counts``: the ids' ``bincount(minlength=num_segments)``, where the
+    caller has it already.  On the card the same inputs give the CPU's sums
+    bit for bit, on every launch."""
+    if not _dispatch(rows, "segment_sum"):
+        return segment_sum_reference(rows, ids, num_segments)
+    N, D = rows.shape
+    dev = rows.device
+    _require(rows, "rows", torch.float32, (N, D), dev)
+    if ids.device != dev or ids.shape != (N,) or ids.dtype.is_floating_point:
+        raise ValueError(f"ids must be an integer (N,) = ({N},) tensor on {dev}; got "
+                         f"{ids.dtype} {tuple(ids.shape)} on {ids.device}")
+    if (num_segments + 15) // 16 > 65535:
+        raise ValueError(f"segment_sum kernel takes at most 1048560 segments; got {num_segments}")
+    out = torch.empty((num_segments, D), dtype=torch.float32, device=dev)
+    if num_segments == 0 or D == 0:
+        return out
+    if N == 0:
+        return out.zero_()
+    perm, offsets = segment_order(ids, num_segments, counts)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.wt_segment_sum(rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+                                out.data_ptr(), num_segments, D, _stream(dev))
+    # No work counted: FlopCounterMode counts none for the plain index_add_.
+    _count(segment_sum, 0)
+    _check(rc, "segment_sum")
+    return out
+
+
+segment_sum.launches = 0
+segment_sum.flops = 0
+
+WRAPPERS = (vq_nearest, convnext_block, encoder_front, segment_sum)
 
 
 def reset_launch_counts() -> None:

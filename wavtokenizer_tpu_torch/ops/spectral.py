@@ -11,7 +11,8 @@ Port of ``wavtokenizer_tpu/ops/spectral.py``:
   for the TPU; here it is ``torch.fft.irfft``, the same function.
 * ``istft_center`` (torch.istft's center trim of n_fft // 2 at both ends;
   the inverse of ``stft(center=True)``, ref dd.py:34-62).
-* ``stft`` (torch.stft, optionally with the center reflect pad),
+* ``stft`` (torch.stft's, framed by ``unfold`` so that its backward
+  repeats on the card; optionally with the center reflect pad),
   ``mel_filterbank`` (torchaudio's HTK filterbank without norm, numpy),
   ``mel_spectrogram`` and ``safe_log`` (ref decoder/loss.py:12-39,
   decoder/modules.py:194-205, decoder/feature_extractors.py:30-51).
@@ -125,18 +126,28 @@ def istft_center(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
 def stft(x: torch.Tensor, n_fft: int, hop_length: int,
          win_length: int | None = None, window: np.ndarray | None = None,
          center: bool = True) -> torch.Tensor:
-    """Complex STFT of (B, L) -> (B, T, n_fft // 2 + 1): torch.stft, with
-    center reflect padding when ``center``.  The default window is the
-    periodic Hann; a window shorter than n_fft is centre-padded to n_fft
-    (torch.stft's rule)."""
+    """Complex STFT of (B, L) -> (B, T, n_fft // 2 + 1), torch.stft's
+    (onesided, no normalization), with center reflect padding when
+    ``center``.  The default window is the periodic Hann; a window shorter
+    than n_fft is centre-padded to n_fft (torch.stft's rule).
+
+    The frames are ``Tensor.unfold``'s view and the transform
+    ``torch.fft.rfft``: the same view and transform torch.stft computes (bit
+    for bit on the CPU, forward and backward), but a backward that repeats
+    on the card.  torch.stft frames through ``as_strided``, whose backward
+    over overlapping frames is an ``index_add_`` (float atomics on CUDA, in
+    an order that changes from run to run); unfold's backward sums each
+    sample's frames in a fixed order."""
     if win_length is None:
         win_length = n_fft
     if window is None:
         window = hann_window(win_length)
-    window = torch.as_tensor(np.asarray(window, np.float32), device=x.device, dtype=x.dtype)
-    spec = torch.stft(x, n_fft, hop_length, win_length, window, center=center,
-                      pad_mode="reflect", onesided=True, return_complex=True)
-    return spec.transpose(1, 2)
+    lpad = (n_fft - win_length) // 2
+    window = np.pad(np.asarray(window, np.float32), (lpad, n_fft - win_length - lpad))
+    window = torch.as_tensor(window, device=x.device, dtype=x.dtype)
+    if center:
+        x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    return torch.fft.rfft(x.unfold(-1, n_fft, hop_length) * window, dim=-1)
 
 
 def _hz_to_mel(f) -> np.ndarray:

@@ -3,9 +3,10 @@
 Port of ``tools_tpu/check_env.py`` (ref test_env.py:6-36: the device is
 visible and a checkpoint loads).  Prints the card, its power limit, the
 torch and CUDA versions and a small computation on the device; builds the
-three CUDA kernels and launches each once against its plain version (the
+four CUDA kernels and launches each once against its plain version (the
 VQ kernel's ids equal, the ConvNeXt and front kernels within 1e-2 and 1e-5
-of their output's largest value); says whether the native data loader
+of their output's largest value, the segment sums equal to the CPU's bit
+for bit); says whether the native data loader
 builds; and with ``--config`` and ``--checkpoint`` loads the checkpoint.
 Prints OK or FAILED last; exits 1 on a failure, and without a card unless
 ``--device cpu`` (which checks the rest on the CPU and builds no kernel).
@@ -76,6 +77,14 @@ def kernel_checks(device: torch.device) -> dict:
         rel = float((got - want).abs().max() / want.abs().max())
         out["encoder_front"] = (rel < 1e-5, f"max abs err over max |out| {rel:.3g} "
                                             "(limit 1e-5)")
+
+        rows = torch.randn(1000, spec.vq.dimension, generator=gen)
+        ids = torch.randint(0, spec.vq.bins, (1000,), generator=gen)
+        got = K.segment_sum(rows.to(device), ids.to(device), spec.vq.bins).cpu()
+        want = K.segment_sum_reference(rows, ids, spec.vq.bins)
+        same = torch.equal(got, want)
+        out["segment_sum"] = (same, "sums equal to the CPU's bit for bit" if same else
+                              f"max abs err {float((got - want).abs().max()):.3g} (limit 0)")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return out

@@ -14,6 +14,12 @@ Every nearest-code search, k-means' included, goes through
 and every k-means iteration).  The ids carry no gradient: the kernel gets x
 detached, as the JAX wrapper's ``stop_gradient``.
 
+The per-code sums of k-means and of the EMA go through
+``ops/kernels.py::segment_sum``: on the card a kernel that adds each code's
+rows in ascending row order without float atomics, the order of the CPU's
+``index_add_`` and of JAX's ``jax.ops.segment_sum`` on XLA:CPU, so that the
+card's sums equal the CPU's bit for bit and a step repeats exactly.
+
 Sample indices (k-means' initial means) come from an explicit CPU
 ``torch.Generator``, so two devices given generators of one seed start from
 the same means; JAX draws them from its key, so the two packages' draws
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.kernels import segment_sum
 from ..ops.vq import codebook_lookup, nearest_codebook_indices
 from ..parallel.mesh import all_gather, all_reduce_sum, group_rank
 
@@ -60,11 +67,9 @@ def sample_vectors(samples: torch.Tensor, num: int,
 
 
 def _assign(samples: torch.Tensor, means: torch.Tensor):
-    """Nearest mean per row, and the rows' count and sum per mean."""
+    """Nearest mean per row, and the rows' count per mean."""
     buckets = nearest_codebook_indices(samples, means).long()
-    bins = torch.bincount(buckets, minlength=means.shape[0])
-    sums = torch.zeros_like(means).index_add_(0, buckets, samples)
-    return buckets, bins, sums
+    return buckets, torch.bincount(buckets, minlength=means.shape[0])
 
 
 @torch.no_grad()
@@ -77,14 +82,16 @@ def kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int = 10,
 
     Returns (means (C, D), bins (C,), buckets (N,)): ``buckets`` is the last
     assignment, the nearest mean of every row under the returned means.
-    num_iters + 1 searches."""
+    num_iters + 1 searches and num_iters segment sums."""
     if means is None:
         means = sample_vectors(samples, num_clusters, generator)
+    samples = samples.contiguous()
     for _ in range(num_iters):
-        _, bins, sums = _assign(samples, means)
+        buckets, bins = _assign(samples, means)
+        sums = segment_sum(samples, buckets, num_clusters, bins)
         new_means = sums / bins.clamp(min=1)[:, None]
         means = torch.where((bins == 0)[:, None], means, new_means)
-    buckets, bins, _ = _assign(samples, means)
+    buckets, bins = _assign(samples, means)
     return means, bins, buckets
 
 
@@ -121,8 +128,9 @@ def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
     quantized = codebook_lookup(idx, embed)
 
     decay = cfg.decay
-    counts = torch.bincount(idx, minlength=C).to(x_flat.dtype)
-    embed_sum = torch.zeros_like(embed).index_add_(0, idx, x_flat)
+    bins = torch.bincount(idx, minlength=C)
+    embed_sum = segment_sum(x_flat.contiguous(), idx, C, bins)
+    counts = bins.to(x_flat.dtype)
     all_reduce_sum([counts, embed_sum], group)
     cluster_size = cluster_size * decay + counts * (1 - decay)
     embed_avg = embed_avg * decay + embed_sum * (1 - decay)

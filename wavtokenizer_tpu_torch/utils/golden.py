@@ -11,6 +11,14 @@ The tolerance is the one the JAX package's benchmark uses on its chip,
 ``max(2, n // 400)`` differing ids, with 0 as the goal: a backend that sums
 in another order may flip a genuine near-tie between two codes.
 
+The API is the JAX module's (``compute_codes``, ``write_golden``,
+``load_golden``, ``check_codes``) with the device named: the codes are
+this package's, computed on ``device`` (the card by default), so a run
+gates its own tokens against the committed file with no JAX anywhere.
+``write_golden`` never writes the committed file: its ids come from the
+JAX package on XLA:CPU (``tools_tpu/make_golden_tokens.py``), where parity
+with the reference is proven, and stay the contract.
+
 The random weights send almost every frame of the clip to one code (the
 small-320 ids are all 573), so the golden ids cannot tell a nearest-code
 search that loses precision from one that keeps it.  ``near_tie_rows``
@@ -26,6 +34,8 @@ import os
 import numpy as np
 import torch
 
+from ..api.pretrained import WavTokenizer
+from ..models.init import init_wavtokenizer
 from ..models.seanet import SEANetConfig
 from ..models.vocos import ISTFTHeadConfig
 from ..models.wavtokenizer import WavTokenizerSpec
@@ -56,9 +66,57 @@ def golden_clip(spec: WavTokenizerSpec) -> np.ndarray:
     return rng.normal(size=(GOLDEN_BATCH, T)).astype(np.float32) * 0.1
 
 
+def compute_codes(spec: WavTokenizerSpec, device="cuda") -> np.ndarray:
+    """Token ids (1, GOLDEN_BATCH, T') of the seeded golden clip through
+    ``WavTokenizer.encode_infer`` on ``device``, weights
+    ``init_wavtokenizer(spec, seed=0, random_codebook=True)``."""
+    model = WavTokenizer.from_jax_params(init_wavtokenizer(spec, seed=0, random_codebook=True),
+                                         spec, device=device)
+    _, codes = model.encode_infer(golden_clip(spec))
+    return codes.cpu().numpy()
+
+
+def write_golden(path: str, device="cuda") -> str:
+    """Every golden config's codes on ``device`` into ``path`` (npz, int32).
+    Refuses the committed file, which holds the JAX package's ids."""
+    if os.path.realpath(path) == os.path.realpath(golden_path()):
+        raise ValueError(f"{path} is the committed golden file, written by the JAX package on "
+                         "XLA:CPU (tools_tpu/make_golden_tokens.py); write elsewhere")
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **{label: compute_codes(spec, device).astype(np.int32)
+                      for label, spec in golden_specs().items()})
+    return path
+
+
 def load_golden(path: str | None = None) -> dict:
     with np.load(path or golden_path()) as z:
         return {k: z[k] for k in z.files}
+
+
+def check_codes(label: str, path: str | None = None, max_flips: int = 0,
+                device="cuda") -> int:
+    """Recompute ``label``'s codes on ``device``, compare them with the
+    golden file's (``path``, default the committed one) and return the
+    number of differing ids.
+
+    Raises ``RuntimeError`` when the shapes differ or more than
+    ``max_flips`` ids do (a run must stop rather than report on wrong
+    tokens), ``KeyError`` for a label the file lacks.  0, the default, is
+    the goal; a device that sums in another order passes the module-level
+    ``max_flips(n)`` here."""
+    golden = load_golden(path)
+    if label not in golden:
+        raise KeyError(f"no golden tokens for config {label!r} in {path or golden_path()}")
+    got = compute_codes(golden_specs()[label], device)
+    want = golden[label]
+    n_bad = int(np.sum(got != want)) if got.shape == want.shape else -1
+    if got.shape != want.shape or n_bad > max_flips:
+        raise RuntimeError(
+            f"GOLDEN TOKEN MISMATCH for {label} on {device}: shape {got.shape} vs "
+            f"{want.shape}, {n_bad} differing ids (allowed {max_flips}): the encode path "
+            "no longer gives the committed tokens")
+    return n_bad
 
 
 def max_flips(n_ids: int) -> int:

@@ -17,8 +17,8 @@ Port of ``wavtokenizer_tpu/utils/profiling.py``:
 * ``PEAKS`` and ``device_peak_flops``: the data-sheet peaks of the card
   (FLOP/s per precision, HBM bytes/s), keyed by
   ``torch.cuda.get_device_name()``.
-* ``vq_bound_of``, ``convnext_bound``, ``front_bound_of``: the least time of
-  one kernel call on the card, the larger of its operations over the peak of
+* ``vq_bound_of``, ``convnext_bound``, ``front_bound_of``,
+  ``segment_sum_bound``: the least time of one kernel call on the card, the larger of its operations over the peak of
   their type and its bytes (each input read once, each output written once)
   over the memory rate.
 * ``pipeline_stages``: the codec's stages (encoder, VQ, backbone, head and
@@ -123,6 +123,13 @@ def front_bound_of(S: int, pack: dict, peaks: dict = H100) -> tuple:
                 3 * 2 * FRONT_TF32_MACS_PER_SAMPLE * S / peaks["tf32"])
     n_weights = sum(t.numel() for t in pack.values())
     return _bound(ops_s, (S * 4 + S // 8 * 128 * 4 + n_weights * 4) / peaks["bytes"])
+
+
+def segment_sum_bound(N: int, C: int, D: int, peaks: dict = H100) -> tuple:
+    """(least ms, bound) of one segment sum of N rows of D into C codes: the
+    N D fp32 adds, against the rows (f32) and ids (int64) read once and the
+    (C, D) sums written once."""
+    return _bound(N * D / peaks["fp32"], (N * D * 4 + N * 8 + C * D * 4) / peaks["bytes"])
 
 
 # ---------------------------------------------------------------------------
