@@ -77,11 +77,14 @@ and tools/extract_features.py with two against one; and the ConvNeXt
 kernel on 2 and 4 tensor-parallel slices of its hidden width, summed
 against the whole kernel and the plain block, and timed.
 
-Last, determinism ([18]): the segment-sum kernel, which sums the VQ's
-training statistics (k-means and the EMA) in a fixed order without float
-atomics, at 9000 x 4096 x 512 with skewed and with spread ids, equal bit
-for bit to index_add_ on the CPU and to its own second launch, timed
-beside its bound and index_add_ on the card; and the YAML's step run twice
+Last, determinism ([18]): the segment-sum kernels (the order, then the
+sums), which sum the VQ's training statistics (k-means and the EMA) in a
+fixed order without float atomics, at 9000 x 4096 x 512 with skewed, spread
+and mixed ids and with two sets of ids that [12] (c) took from the training
+path, equal bit for bit to index_add_ on the CPU and to their own second
+launch, one launch of each in a call's trace and no sort, each kernel timed
+alone beside the bound, the chain floor and index_add_ on the card, and the
+wrapper's host time; and the YAML's step run twice
 from one state under cuDNN's deterministic algorithms alone: every
 quantity equal.  The golden gate of [4] is the library's
 (utils/golden.py::check_codes); [12], [16] and [17] count the segment-sum
@@ -151,34 +154,63 @@ def launch_counts(K) -> dict:
             "encoder_front": K.encoder_front.launches}
 
 
-# torch.profiler has returned a whole trace without device events on the
-# H100; such a trace is taken again, up to this many times in all.
+# torch.profiler (Kineto over CUPTI) on the H100 loses device records once
+# the process has run [12]'s training (a fresh process loses none, and a
+# trace of 20 000 kernels alone does not cause it): mostly the first few
+# kernels of a trace, at times all of them.  So each trace starts with
+# TRACE_WARMUP short kernels of its own, waited for and left out of the
+# result, which take the loss at the start; a trace that still lost records
+# (none held, or ``complete`` says some are missing) is taken again, up to
+# TRACE_ATTEMPTS times in all.  TRACES counts the traces taken and those that
+# lost records; [18] measures the loss with and without the warm-up (PERF.md
+# §6).
+TRACE_WARMUP = 32
 TRACE_ATTEMPTS = 3
+TRACES = {"taken": 0, "lost": 0}
 
 
-def traced(fn) -> tuple:
-    """Run fn() once under torch.profiler (CPU and CUDA activity); returns the
-    device time in ms and the launch count of every CUDA kernel by name, and
-    the device idle share of the window from the first traced event to the
-    last kernel's end.  Raises when no attempt traced device activity."""
+def _trace_once(fn, warmup: int) -> tuple:
+    """One torch.profiler trace (CPU and CUDA activity) of fn() after
+    ``warmup`` short kernels of its own: (every event, fn's device events,
+    their ms and count by kernel name)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for attempt in range(1, TRACE_ATTEMPTS + 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(warmup):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("traced fn"):
             fn()
             torch.cuda.synchronize()
-        events = list(prof.events())
-        dev = [e for e in events if e.device_type == DeviceType.CUDA]
-        if dev:
-            break
-        log(f"[profile] trace {attempt} of {TRACE_ATTEMPTS} held no device activity")
-    check(bool(dev), "torch.profiler traced no device activity")
+    events = list(prof.events())
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.name and e.name != "traced fn"]
     by_name: dict = {}
     for e in dev:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return events, dev, by_name
+
+
+def traced(fn, complete=None) -> tuple:
+    """Run fn() once under torch.profiler after the warm-up; returns the
+    device time in ms and the launch count of every CUDA kernel by name, and
+    the device idle share of the window from fn's start to the last kernel's
+    end.  ``complete(by_name)``, where given, says whether the trace holds
+    every launch fn made.  Raises when no attempt traced device activity."""
+    from torch.autograd import DeviceType
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        events, dev, by_name = _trace_once(fn, TRACE_WARMUP)
+        TRACES["taken"] += 1
+        if dev and (complete is None or complete(by_name)):
+            break
+        TRACES["lost"] += 1
+        log(f"[profile] trace {attempt} of {TRACE_ATTEMPTS} "
+            + ("held no device activity" if not dev else "lost device events"))
+    check(bool(dev), "torch.profiler traced no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -187,7 +219,9 @@ def traced(fn) -> tuple:
         else:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
-    window = max(e for _, e in spans) - min(e.time_range.start for e in events)
+    start = min(e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name == "traced fn")
+    window = max(e for _, e in spans) - start
     return by_name, 1.0 - busy / window
 
 
@@ -754,6 +788,27 @@ def off_float64_nearest(x: torch.Tensor, embed: torch.Tensor, picks: dict) -> di
         return {k: int((dist(v) > nearest).sum()) for k, v in picks.items()}
 
 
+def _segment_ids_summary(first: list, later: list, iters: int) -> tuple:
+    """The ids the training path gives ``segment_sum``, from the (ids,
+    counts) of each call of the first step (``iters`` k-means iterations,
+    then the EMA in both phases) and of a later step (the EMA twice): the
+    largest count on one code and the codes in use, per call; and two of
+    those ids for [18]: the k-means iteration of median largest count, and
+    the later step's last EMA call."""
+    check(all(c is not None for _, c in first + later), "segment_sum called without counts")
+    counts = torch.stack([c for _, c in first + later]).cpu()
+    mx, used = counts.max(1).values.tolist(), (counts > 0).sum(1).tolist()
+    pairs = list(zip(mx, used))
+    km = pairs[:iters]
+    med = sorted(range(iters), key=lambda j: (mx[j], j))[iters // 2]
+    spread = lambda v: (min(v), sorted(v)[len(v) // 2], max(v))
+    summary = {"k-means": {"first": km[0], "last": km[-1], "median_iter": med + 1,
+                           "median": km[med], "max_count": spread([a for a, _ in km]),
+                           "codes_used": spread([b for _, b in km])},
+               "EMA first step": pairs[iters:len(first)], "EMA later step": pairs[len(first):]}
+    return summary, {"k-means": first[med][0].cpu(), "EMA": later[-1][0].cpu()}
+
+
 def train_timing(K) -> dict:
     """Phase 12 (b) and (c): the spec and TrainConfig of the small-320 YAML
     (k-means 200 iterations), the discriminators at full width, batch 40 x
@@ -764,6 +819,7 @@ def train_timing(K) -> dict:
     import yaml
 
     from wavtokenizer_tpu_torch.models.seanet import seanet_encode
+    from wavtokenizer_tpu_torch.train import vq_train
     from wavtokenizer_tpu_torch.train.step import (create_train_state, discriminator_phase,
                                                    generator_phase, train_step)
     from wavtokenizer_tpu_torch.train.trainer import step_generator, train_config_from_yaml
@@ -824,30 +880,50 @@ def train_timing(K) -> dict:
     out["N"], out["C"], out["D"] = N, C, D
     del x, means, got, want
 
-    # (c) the step.
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, m = train_step(state, audio, spec, tcfg, step_generator(0, 0))
-    torch.cuda.synchronize()
-    out["first_ms"] = (time.perf_counter() - t0) * 1e3
-    out["launches_first"] = K.vq_nearest.launches
-    out["seg_launches_first"] = K.segment_sum.launches
-    out["first_metrics"] = {k: float(v) for k, v in m.items()}
-    train_step(state, audio, spec, tcfg, step_generator(0, 1))       # warm-up
-    times, launches, seg = [], [], []
-    for step in (2, 3, 4):
+    # (c) the step.  The segment sums' ids and counts of the first step and
+    # of the first timed later step are kept by reference (nothing is read
+    # back or launched for them while the steps run) and summarised after.
+    seg_calls, real_sum = [], vq_train.segment_sum
+
+    def recorded_sum(rows, ids, num_segments, counts=None):
+        seg_calls.append((ids, counts))
+        return real_sum(rows, ids, num_segments, counts)
+
+    vq_train.segment_sum = recorded_sum
+    try:
+        torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, m = train_step(state, audio, spec, tcfg, step_generator(0, step))
+        _, m = train_step(state, audio, spec, tcfg, step_generator(0, 0))
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        launches.append(K.vq_nearest.launches)
-        seg.append(K.segment_sum.launches)
-        check(all(bool(torch.isfinite(v)) for v in m.values()), f"non-finite losses at step {step}")
+        out["first_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches_first"] = K.vq_nearest.launches
+        out["seg_launches_first"] = K.segment_sum.launches
+        out["first_metrics"] = {k: float(v) for k, v in m.items()}
+        first_calls = len(seg_calls)
+        train_step(state, audio, spec, tcfg, step_generator(0, 1))       # warm-up
+        warm_calls = len(seg_calls)
+        times, launches, seg = [], [], []
+        for step in (2, 3, 4):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = train_step(state, audio, spec, tcfg, step_generator(0, step))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(K.vq_nearest.launches)
+            seg.append(K.segment_sum.launches)
+            check(all(bool(torch.isfinite(v)) for v in m.values()),
+                  f"non-finite losses at step {step}")
+            if step == 2:
+                vq_train.segment_sum = real_sum
+    finally:
+        vq_train.segment_sum = real_sum
     out["step_ms"], out["launches_per_step"], out["seg_launches_per_step"] = times, launches, seg
+    out["seg_ids"], out["seg_real_ids"] = _segment_ids_summary(
+        seg_calls[:first_calls], seg_calls[warm_calls:], spec.vq.kmeans_iters)
+    del seg_calls
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["metrics"] = {k: float(v) for k, v in m.items()}
     # The two phases of one more step, each timed alone (no dropout).
@@ -2267,21 +2343,78 @@ def tp_shards_phase(K, block: dict, T_frames: int, dev: str = "cuda") -> dict:
 
 
 # [18]: the VQ's training statistics without float atomics.  (a) The
-# segment-sum kernel at the training shape (9000 rows = 40 x 3 s of
+# segment-sum kernels at the training shape (9000 rows = 40 x 3 s of
 # small-320 frames, 4096 codes of 512) with skewed ids (every row to code
-# 573, where the random weights send them) and spread ids (uniform): equal
-# to index_add_ on the CPU and to its own second launch, bit for bit; timed
-# beside its bound, its plain version on the card (zeros + index_add_, float
-# atomics) and index_add_ alone.  (b) The YAML's step from one state past its
-# first step, twice, under cuDNN's deterministic algorithms alone: metrics,
-# gradients, weights and VQ state equal (0).
+# 573), spread ids (uniform), mixed ids (60% to one code, the rest spread
+# over every third code) and the training path's own (from [12] (c): the
+# k-means iteration of median fullest code, and a later step's EMA): equal
+# to index_add_ on the CPU and to their own second launch, bit for bit;
+# timed beside the bound, the chain floor, the plain version on the card
+# (zeros + index_add_, float atomics) and index_add_ alone, each kernel
+# alone from one trace of SEGMENT_REPS calls (which must hold one event of
+# each a call and no sort), and the wrapper's host time.  (b) The YAML's step from
+# one state past its first step, twice, under cuDNN's deterministic
+# algorithms alone: metrics, gradients, weights and VQ state equal (0).
 SEGMENT_SHAPE = (9000, 4096, 512)
+SEGMENT_REPS = 10
 
 
-def determinism_phase(K, dev: str = "cuda") -> dict:
+def _sm_max_mhz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0])
+
+
+SEGMENT_KERNELS = ("segment_order_kernel", "segment_sum_kernel")
+TRACE_PROBES = 10           # (a): traces taken bare and after the warm-up
+
+
+def _segment_events(by_name: dict, key: str) -> list:
+    return [v for name, v in by_name.items() if key in name]
+
+
+def _segment_complete(by_name: dict) -> bool:
+    """Whether a trace of SEGMENT_REPS calls holds every launch of both
+    kernels."""
+    return all(sum(n for _, n in _segment_events(by_name, key)) == SEGMENT_REPS
+               for key in SEGMENT_KERNELS)
+
+
+def _segment_kernels_traced(K, fn) -> tuple:
+    """(order kernel ms, sum kernel ms, profile line) a call, from one trace
+    of SEGMENT_REPS calls of fn, which must launch each kernel exactly once a
+    call and no sort."""
+    split, _ = traced(lambda: [fn() for _ in range(SEGMENT_REPS)], _segment_complete)
+    got = {}
+    for key in SEGMENT_KERNELS:
+        ev = _segment_events(split, key)
+        check(len(ev) == 1 and ev[0][1] == SEGMENT_REPS,
+              f"{SEGMENT_REPS} segment_sum calls: {key} events {ev}, expected one a call")
+        got[key] = ev[0][0] / SEGMENT_REPS
+    sorts = [name for name in split if "sort" in name.lower()]
+    check(not sorts, f"segment_sum: the trace holds sort kernels {sorts}")
+    return got["segment_order_kernel"], got["segment_sum_kernel"], kernel_lines(split, 8)
+
+
+def _host_ms(fn, n: int = 20) -> float:
+    """Host time of one call of fn: n calls queued back to back, the clock
+    stopped before the card is waited on."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def determinism_phase(K, dev: str = "cuda", real_ids: dict | None = None) -> dict:
     import wavtokenizer_tpu_torch.train.step as S
     from wavtokenizer_tpu_torch.train.trainer import step_generator
-    from wavtokenizer_tpu_torch.utils.profiling import segment_sum_bound
+    from wavtokenizer_tpu_torch.utils.profiling import segment_chain_ms, segment_sum_bound
 
     N, C, D = SEGMENT_SHAPE
     rng = np.random.default_rng(18)
@@ -2289,10 +2422,19 @@ def determinism_phase(K, dev: str = "cuda") -> dict:
     # shows in the rounding.
     rows = torch.as_tensor((rng.normal(size=(N, D)) * 10.0 ** rng.uniform(-3, 3, size=(N, 1)))
                            .astype(np.float32))
+    mixed = rng.choice(np.arange(0, C, 3), N)
+    mixed[rng.random(N) < 0.6] = C // 2
     out = {"N": N, "C": C, "D": D, "ids": {}}
     out["bound_ms"], out["bound_by"] = segment_sum_bound(N, C, D)
-    for kind, ids in (("skewed", torch.full((N,), 573)),
-                      ("spread", torch.as_tensor(rng.integers(0, C, N)))):
+    out["sm_mhz"] = _sm_max_mhz() if dev == "cuda" else 1980.0
+    out["codes_per_block"] = K.segment_launch_plan(C, D, torch.device(dev))
+    kinds = [("skewed", torch.full((N,), 573)),
+             ("spread", torch.as_tensor(rng.integers(0, C, N))),
+             ("mixed", torch.as_tensor(mixed))]
+    for kind, ids in (real_ids or {}).items():
+        check(ids.shape == (N,), f"{kind} ids of the training path: {tuple(ids.shape)}")
+        kinds.append((kind, ids))
+    for kind, ids in kinds:
         want = K.segment_sum_reference(rows, ids, C)
         x, i = rows.to(dev), ids.to(dev)
         a, b = K.segment_sum(x, i, C), K.segment_sum(x, i, C)
@@ -2301,22 +2443,27 @@ def determinism_phase(K, dev: str = "cuda") -> dict:
             torch.cuda.synchronize()
         r = {"cpu_equal": torch.equal(a.cpu(), want), "repeat_equal": torch.equal(a, b),
              "max_abs_err": float((a.cpu() - want).abs().max()),
-             "plain_card_err": float((atomics.cpu() - want).abs().max())}
+             "plain_card_err": float((atomics.cpu() - want).abs().max()),
+             "chain_ms": segment_chain_ms(int(torch.bincount(ids).max()), out["sm_mhz"])}
         check(r["cpu_equal"], f"segment_sum {kind}: differs from index_add_ on the CPU by "
                               f"{r['max_abs_err']:.3g}")
         check(r["repeat_equal"], f"segment_sum {kind}: two launches differ")
         # Timed as the training path calls it, with the ids' counts at hand
-        # (k-means and the EMA compute them anyway): the sort, the offsets
-        # and the kernel.
+        # (k-means and the EMA compute them anyway): the order kernel and the
+        # sum kernel, nothing read back.
         zeros, counts = torch.zeros(C, D, device=dev), torch.bincount(i, minlength=C)
         r["ms"] = cuda_ms(lambda: K.segment_sum(x, i, C, counts), 20)
+        r["host_ms"] = _host_ms(lambda: K.segment_sum(x, i, C, counts))
+        r["max_count"], r["codes_used"] = int(counts.max()), int((counts > 0).sum())
         r["plain_ms"] = cuda_ms(lambda: K.segment_sum_reference(x, i, C), 20)
         r["library_ms"] = cuda_ms(lambda: zeros.index_add_(0, i, x), 20)
-        split, _ = traced(lambda: K.segment_sum(x, i, C, counts))
-        kern = [v for name, v in split.items() if "segment_sum_kernel" in name]
-        check(len(kern) == 1, f"segment_sum {kind}: the trace holds {kern} kernel events")
-        r["kernel_ms"] = kern[0][0]
-        r["profile"] = kernel_lines(split, 8)
+        if kind == "skewed":
+            reps = lambda: [K.segment_sum(x, i, C, counts) for _ in range(SEGMENT_REPS)]
+            out["trace_loss"] = {w: sum(not _segment_complete(_trace_once(reps, w)[2])
+                                        for _ in range(TRACE_PROBES))
+                                 for w in (0, TRACE_WARMUP)}
+        r["order_kernel_ms"], r["kernel_ms"], r["profile"] = _segment_kernels_traced(
+            K, lambda: K.segment_sum(x, i, C, counts))
         out["ids"][kind] = r
     del rows, x, i, a, b, atomics, zeros, counts
 
@@ -2732,6 +2879,14 @@ def main() -> int:
     log(f"[12 train] (c) losses: first step " + ", ".join(
         f"{k} {v:.4g}" for k, v in tt["first_metrics"].items()) + "; last timed step "
         + ", ".join(f"{k} {v:.4g}" for k, v in tt["metrics"].items()))
+    si, iters = tt["seg_ids"], tt["kmeans_iters"]
+    km = si["k-means"]
+    log(f"[12 train] (c) segment_sum ids, (rows on the fullest code, codes in use) of "
+        f"{tt['N']} rows over {tt['C']} codes: first step, k-means iteration 1 {km['first']}, "
+        f"{iters} {km['last']}, {km['median_iter']} (the median fullest code) {km['median']}, "
+        f"over the {iters} iterations the fullest code min/median/max {km['max_count']} and "
+        f"codes in use {km['codes_used']}; the EMA (discriminator, generator phase) on the "
+        f"first step {si['EMA first step']}, on a later step {si['EMA later step']}")
     log(f"[12 profile] one training step B={tt['B']}: device busy {tt['busy_ms']:.1f} ms in "
         f"{tt['ops']} device ops, idle share {tt['idle']:.4f}; top: {tt['profile']}; card {card}")
     torch.cuda.empty_cache()
@@ -2932,22 +3087,33 @@ def main() -> int:
     # -- 18. determinism: the VQ's training statistics without atomics ----
     t18 = time.perf_counter()
     torch.cuda.empty_cache()
-    dt = determinism_phase(K)
+    dt = determinism_phase(K, real_ids=tt["seg_real_ids"])
+    log(f"[18 determinism] (a) segment_sum plan at N={dt['N']} C={dt['C']} D={dt['D']}: column "
+        f"slice {K.SEGMENT_SLICE}, {dt['codes_per_block']} codes a block, {K.SEGMENT_STAGES} "
+        f"stages of 32 rows; chain floors at {dt['sm_mhz']:.0f} MHz (4 cycles an add); card "
+        f"{card}")
     for ids_kind, r in dt["ids"].items():
-        log(f"[18 determinism] (a) segment_sum N={dt['N']} C={dt['C']} D={dt['D']}, {ids_kind} ids: "
-            f"equal to index_add_ on the CPU bit for bit ({r['cpu_equal']}; max abs err "
+        log(f"[18 determinism] (a) segment_sum N={dt['N']} C={dt['C']} D={dt['D']}, {ids_kind} ids "
+            f"({r['max_count']} rows on the fullest code, {r['codes_used']} codes in use): equal to index_add_ on the CPU bit for bit ({r['cpu_equal']}; max abs err "
             f"{r['max_abs_err']:.3g}), two launches equal ({r['repeat_equal']}); index_add_ on "
             f"the card (float atomics) against the CPU max abs err {r['plain_card_err']:.3g}; "
-            f"wrapper with the counts given (sort, offsets, kernel) {r['ms']:.4f} ms, the kernel alone (trace) "
-            f"{r['kernel_ms']:.4f} ms, bound {dt['bound_ms']:.4f} ms ({dt['bound_by']}), plain "
-            f"(zeros + index_add_) {r['plain_ms']:.4f} ms, index_add_ alone {r['library_ms']:.4f} "
-            f"ms; card {card}")
+            f"wrapper with the counts given (order kernel, sum kernel) {r['ms']:.4f} ms (its "
+            f"host time {r['host_ms']:.4f} ms), the "
+            f"order kernel alone (trace) {r['order_kernel_ms']:.4f} ms, the sum kernel alone "
+            f"{r['kernel_ms']:.4f} ms, bound {dt['bound_ms']:.4f} ms ({dt['bound_by']}), chain "
+            f"floor {r['chain_ms']:.4f} ms, plain (zeros + index_add_) {r['plain_ms']:.4f} ms, "
+            f"index_add_ alone {r['library_ms']:.4f} ms; card {card}")
         log(f"[18 profile] segment_sum {ids_kind}: {r['profile']}")
     log(f"[18 determinism] (b) {TRAIN_CONFIG} at {dt['B']} x {dt['T']}, one state past its first "
         f"step, the step twice under cudnn.deterministic alone (no "
         f"use_deterministic_algorithms): " + ", ".join(
             f"{k} {v:.3g}" for k, v in dt["repeat"].items())
         + f" (limit 0); segment_sum launches {dt['step_launches']}; card {card}")
+    log(f"[18 determinism] torch.profiler at this point of the run: of {TRACE_PROBES} traces of "
+        f"{SEGMENT_REPS} segment_sum calls, {dt['trace_loss'][0]} lost device records taken "
+        f"bare, {dt['trace_loss'][TRACE_WARMUP]} after {TRACE_WARMUP} short kernels of their "
+        f"own; in the whole run {TRACES['taken']} traces were taken (with the warm-up), "
+        f"{TRACES['lost']} of them lost records and were taken again")
     log(f"[18 determinism] phase time {time.perf_counter() - t18:.1f} s")
 
     rows = [
@@ -3007,9 +3173,15 @@ def main() -> int:
          "library_ms": dt["ids"]["skewed"]["library_ms"],
          "N": dt["N"], "C": dt["C"], "D": dt["D"], "ids": "skewed",
          "kernel_ms": dt["ids"]["skewed"]["kernel_ms"],
+         "order_kernel_ms": dt["ids"]["skewed"]["order_kernel_ms"],
+         "chain_ms": dt["ids"]["skewed"]["chain_ms"], "sm_mhz": dt["sm_mhz"],
+         "host_ms": dt["ids"]["skewed"]["host_ms"],
+         "slice_cols": K.SEGMENT_SLICE, "codes_per_block": dt["codes_per_block"],
          "launches_per_step": tt["seg_launches_per_step"][-1],
-         "spread": {k: dt["ids"]["spread"][k]
-                    for k in ("ms", "kernel_ms", "plain_ms", "library_ms", "max_abs_err")}},
+         **{kind: {k: dt["ids"][kind][k]
+                   for k in ("ms", "kernel_ms", "order_kernel_ms", "host_ms", "plain_ms",
+                             "library_ms", "max_abs_err", "chain_ms", "max_count", "codes_used")}
+            for kind in dt["ids"] if kind != "skewed"}},
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -414,12 +414,15 @@ def _segment_inputs(n, c, d, kind):
 
 @pytest.mark.parametrize("n,c,d,kind", [(700, 40, 40, "mixed"), (5, 33, 8, "spread"),
                                         (9000, 4096, 512, "skewed"),
-                                        (9000, 4096, 512, "spread")])
+                                        (9000, 4096, 512, "spread"),
+                                        (700, 40, 37, "mixed"), (9000, 4096, 512, "mixed")])
 def test_segment_sum_kernel_bit_equal_to_cpu(cuda, n, c, d, kind):
     """The kernel against ``index_add_`` on the CPU on the same inputs, bit
     for bit (the same order of fp32 adds), and against itself across
-    launches; at a small shape (ragged columns and code groups) and at the
-    training shape (40 x 3 s of small-320 frames, 4096 codes of 512)."""
+    launches, without counts and with them (int32 ids); at small shapes
+    (ragged columns and code groups; D = 37: rows not 16-byte aligned, the
+    4-byte copies) and at the training shape (40 x 3 s of small-320 frames,
+    4096 codes of 512)."""
     rows, ids = _segment_inputs(n, c, d, kind)
     want = K.segment_sum_reference(rows, ids, c)
     x, i = rows.to(cuda), ids.to(cuda)
@@ -430,6 +433,37 @@ def test_segment_sum_kernel_bit_equal_to_cpu(cuda, n, c, d, kind):
     assert K.segment_sum.launches == before + 2
     assert torch.equal(a.cpu(), want)
     assert torch.equal(b, a)
+
+
+@pytest.mark.parametrize("n,c,kind", [(700, 40, "mixed"), (9000, 4096, "skewed"),
+                                      (9000, 4096, "spread")])
+def test_segment_order_kernel_equals_plain_order(cuda, n, c, kind):
+    """``segment_order_kernel`` against the plain ``segment_order`` (a stable
+    sort and the counts' prefix sum), element for element, from int64 and
+    int32 ids; its ``seg`` is each ordered row's id."""
+    _, ids = _segment_inputs(n, c, 8, kind)
+    want_perm, want_offsets = K.segment_order(ids, c)
+    for i in (ids.to(cuda), ids.to(cuda).int()):
+        perm, offsets, outside, seg = K.segment_order_card(i, c)
+        torch.cuda.synchronize()
+        assert torch.equal(perm.cpu(), want_perm)
+        assert torch.equal(offsets.cpu(), want_offsets)
+        assert int(outside.item()) == 0
+        assert torch.equal(seg.cpu().long(), ids[want_perm.long()])
+
+
+def test_segment_sum_kernel_unaligned_rows_bit_equal_to_cpu(cuda):
+    """Rows whose base lies 4 bytes past 16-byte alignment (D = 40, so
+    only the base stops the 16-byte copies): the 4-byte copies, bit for bit
+    against the CPU, with counts given."""
+    rows, ids = _segment_inputs(700, 40, 40, "mixed")
+    i = ids.to(cuda)
+    x = torch.empty(700 * 40 + 1, device=cuda)[1:].view(700, 40)
+    x.copy_(rows.to(cuda))
+    assert x.data_ptr() % 16 != 0
+    got = K.segment_sum(x, i, 40, torch.bincount(i, minlength=40))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.segment_sum_reference(rows, ids, 40))
 
 
 def test_segment_sum_kernel_refuses_what_it_cannot_take(cuda):

@@ -76,104 +76,285 @@ def test_segment_order_lists_each_codes_rows_in_ascending_order():
 
 
 # segment_sum.cu's constants and steps, in numpy.
-ROWS, STAGES, CODES, COLS = 32, 8, 16, 32
+ROWS, LOOK, PRODUCERS = 32, 2, 2       # segment_sum_kernel
+OWARPS, OCODES, OUNROLL = 16, 256, 4   # segment_order_kernel
 
 
-def _emulate_kernel(rows, perm, offsets, C, late):
-    """``segment_sum_kernel`` warp by warp, the 32 lanes as one vector: the
-    ring slots, the commit groups and their waits, the per-code flushes.
-    ``late`` applies a group's copies only when a wait completes it (early
-    reads then see NaN or -1); otherwise when made (a slot reused too early
-    is then overwritten)."""
+class _Barrier:
+    """An mbarrier: a phase completes at its ``count``-th arrival.  Deferred
+    arrivals (a cp.async's arrive.noinc, with the copies it waits for) land
+    as late as they can: when a thread next polls the barrier."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.phase, self.deferred = count, count, 0, []
+
+    def arrive(self, n=1):
+        for _ in range(n):
+            self.pending -= 1
+            if self.pending == 0:
+                self.phase, self.pending = self.phase + 1, self.count
+
+    def done(self, parity):           # mbarrier.try_wait.parity
+        for land, n in self.deferred:
+            land()
+            self.arrive(n)
+        self.deferred.clear()
+        return (self.phase & 1) != parity
+
+
+def _emulate_kernel(rows, perm, seg, offsets, C, late, S, stages, codes, vec):
+    """``segment_sum_kernel`` block by block: the PRODUCERS producer warps
+    and the S / 32 consumer warps as coroutines (lanes as
+    numpy vectors) over the rings of rows and of their codes (``seg``, the
+    code of each row of perm), their full and empty barriers, each
+    producer's perm indices LOOK of its stages ahead, its 16-byte (``vec``)
+    or 4-byte copies and its +0.0 for the group's empty codes, and the
+    consumers' register double buffer, their probe of the stage after next,
+    the slot reads where a code begins, and the stores at each new code.
+    ``late`` lands a stage's copies, and completes its full barrier, only
+    when a consumer polls the barrier (reads before that see NaN or code -7);
+    otherwise when issued (a slot reused too early is then overwritten)."""
     N, D = rows.shape
+    assert not vec or D % 4 == 0
     out = np.full((C, D), np.nan, np.float32)
-    for bx in range(-(-D // COLS)):
-        cols = bx * COLS + np.arange(COLS)
-        live = cols < D
-        gcols = np.minimum(cols, D - 1)
-        for by in range(-(-C // CODES)):
-            c0, c1 = by * CODES, min(C, by * CODES + CODES)
-            off = offsets[np.minimum(c0 + np.arange(32), c1)]
-            j0, j1 = int(off[0]), int(off[c1 - c0])
+    lanes = np.arange(32)
+    P = PRODUCERS
+    for bx in range(-(-D // S)):
+        col0 = bx * S
+        live_cols = min(S, D - col0)
+        for by in range(-(-C // codes)):
+            c0, c1 = by * codes, min(C, by * codes + codes)
+            soff = offsets[c0:c1 + 1].astype(np.int64)
+            j0, j1 = int(soff[0]), int(soff[c1 - c0])
             n = j1 - j0
             chunks = -(-n // ROWS)
-            ring = np.full((STAGES, ROWS, COLS), np.nan, np.float32)
-            pring = np.full((2 * STAGES, ROWS), -1, np.int64)
-            groups, group = [], []
+            ring = np.full((stages, ROWS, S), np.nan, np.float32)
+            sring = np.full((stages, ROWS), -7, np.int64)
+            full = [_Barrier(32) for _ in range(stages)]
+            empty = [_Barrier(S) for _ in range(stages)]
+            progress = [0]
 
-            def copy(write):
-                if late:
-                    group.append(write)
-                else:
-                    write()
+            def index_of(g):
+                j = j0 + g * ROWS + lanes
+                ok = (g < chunks) & (j < j1)
+                return np.where(ok, perm[np.minimum(j, max(N - 1, 0))], 0) if N else lanes * 0
 
-            def commit():
-                groups.append(list(group))
-                group.clear()
+            def producer(p):
+                idx = [index_of(p + u * P) for u in range(LOOK)]
+                for g in range(p, chunks, P):
+                    u, s = (g // P) % LOOK, g % stages
+                    if g >= stages:
+                        while not empty[s].done((g // stages - 1) & 1):
+                            yield
+                    valid = min(ROWS, n - g * ROWS)
+                    if vec:
+                        f = np.arange(S // 4 * 32)
+                        i, q = f // (S // 4), f % (S // 4)
+                        m = (i < valid) & (q * 4 < live_cols)
+                        i, q = i[m], q[m]
+                        r = idx[u][i]                    # the shuffle from lane i
+                        c = (q * 4)[:, None] + np.arange(4)
+                    else:
+                        f = np.arange(S * 32)
+                        i, q = f // S, f % S
+                        m = (i < valid) & (q < live_cols)
+                        i, r, c = i[m], idx[u][i[m]], q[m][:, None]
+                    vals = rows[r[:, None], col0 + c]
+                    cvals = seg[j0 + g * ROWS:j0 + g * ROWS + valid]   # the rows' codes
 
-            def wait(keep):
-                while len(groups) > keep:
-                    for write in groups.pop(0):
-                        write()
+                    def land(s=s, i=i, c=c, vals=vals, cvals=cvals):
+                        ring[s, i[:, None], c] = vals
+                        sring[s, :len(cvals)] = cvals
 
-            def fetch_perm(q):
-                if q >= chunks:
-                    return
-                for lane in range(32):
-                    j = j0 + q * ROWS + lane
-                    if j < j1:
-                        copy(lambda s=q % (2 * STAGES), l=lane, v=perm[j]: pring.__setitem__((s, l), v))
+                    if late:                         # every lane's arrive.noinc
+                        full[s].deferred.append((land, 32))
+                    else:
+                        land()
+                        full[s].arrive(32)
+                    progress[0] += 1
+                    idx[u] = index_of(g + LOOK * P)
+                for cc in range(c0 + p, c1, P):      # the group's empty codes: +0.0
+                    if soff[cc - c0 + 1] == soff[cc - c0]:
+                        out[cc, col0:col0 + live_cols] = 0.0
 
-            def fetch_rows(g):
-                if g >= chunks:
-                    return
-                p = pring[g % (2 * STAGES)]
-                for i in range(min(ROWS, n - g * ROWS)):
-                    assert p[i] >= 0, "gather before its indices arrived"
-                    copy(lambda s=g % STAGES, i=i, v=rows[p[i], gcols]:
-                         ring.__setitem__((s, i), np.where(live, v, np.nan)))
+            def consumer(cw):
+                lc = cw * 32 + lanes
+                live = lc < live_cols
+                st = {"cur": -1, "acc": np.zeros(32, np.float32)}
 
-            for q in range(STAGES):
-                fetch_perm(q)
-            commit()
-            wait(0)
-            for g in range(STAGES):
-                fetch_rows(g)
-                fetch_perm(g + STAGES)
-                commit()
-            cur, end, acc = c0, int(off[1]), np.zeros(COLS, np.float32)
+                def next_code(c):
+                    if st["cur"] >= 0:
+                        out[st["cur"], (col0 + lc)[live]] = st["acc"][live]
+                    st["acc"] = np.zeros(32, np.float32)
+                    st["cur"] = c
 
-            def flush():
-                nonlocal cur, end, acc
-                out[cur, cols[live]] = acc[live]
-                acc = np.zeros(COLS, np.float32)
-                cur += 1
-                end = int(off[cur - c0 + 1])
+                def wait_full(k):
+                    while not full[k % stages].done((k // stages) & 1):
+                        yield
 
-            for k in range(chunks):
-                wait(STAGES - 1)
-                jb, valid = j0 + k * ROWS, min(ROWS, n - k * ROWS)
-                for i in range(valid):
-                    while jb + i == end:
-                        flush()
-                    acc = acc + ring[k % STAGES, i]
-                fetch_rows(k + STAGES)
-                fetch_perm(k + 2 * STAGES)
-                commit()
-            while cur < c1:
-                flush()
+                v, last, ready = None, -1, False
+                if chunks > 0:
+                    yield from wait_full(0)
+                    v, last = ring[0, :, lc].copy(), int(sring[0, ROWS - 1])
+                for k in range(chunks):
+                    more = k + 1 < chunks
+                    if more and not ready:
+                        yield from wait_full(k + 1)
+                    probe = k + 2 >= chunks or full[(k + 2) % stages].done(((k + 2) // stages) & 1)
+                    nxt = (k + 1 if more else k) % stages
+                    valid = min(ROWS, n - k * ROWS)
+                    if valid == ROWS and last == st["cur"]:
+                        w = ring[nxt, :, lc].copy()
+                        for i in range(ROWS):
+                            st["acc"] = st["acc"] + v[:, i]
+                    else:                            # from the slot, 8 rows a read
+                        for i0 in range(0, valid, 8):
+                            t = ring[k % stages, i0:i0 + 8, lc].copy()
+                            cs = sring[k % stages, i0:i0 + 8].copy()
+                            for j in range(8):
+                                if i0 + j < valid:
+                                    if cs[j] != st["cur"]:
+                                        next_code(int(cs[j]))
+                                    st["acc"] = st["acc"] + t[:, j]
+                        w = ring[nxt, :, lc].copy()
+                    last_w = int(sring[nxt, ROWS - 1])
+                    empty[k % stages].arrive(32)
+                    progress[0] += 1
+                    v, last, ready = w, last_w, probe
+                if chunks > 0:
+                    next_code(-1)
+
+            cos = [producer(p) for p in range(P)] + [consumer(cw) for cw in range(S // 32)]
+            while cos:
+                before = progress[0]
+                for co in list(cos):
+                    try:
+                        next(co)
+                    except StopIteration:
+                        cos.remove(co)
+                        progress[0] += 1
+                assert not cos or progress[0] > before, "the pipeline deadlocks"
     return out
 
 
 @pytest.mark.parametrize("kind", ["skewed", "spread", "mixed", "chunked"])
 def test_kernel_steps_emulated_equal_the_plain_sums(kind):
-    """700 rows (22 stages: the rings wrap), 40 codes (a last group of 8),
-    40 columns (a last slice of 8 live lanes)."""
-    x, ids = _rows(704, 40, 4), _ids(kind, 704, 40, 5)
-    want = K.segment_sum(torch.from_numpy(x), torch.from_numpy(ids), 40).numpy()
-    perm, offsets = (t.numpy() for t in K.segment_order(torch.from_numpy(ids), 40))
-    for late in (False, True):
-        np.testing.assert_array_equal(_emulate_kernel(x, perm, offsets, 40, late), want)
+    """704 rows (22 stages: the ring wraps), 40 codes in slices of
+    SEGMENT_SLICE columns; two plans of ``segment_plan`` (the codes a
+    block): 40 columns (a last slice of 8 live columns) by 16-byte copies on
+    a card that holds 4 blocks at once (2 groups of 20 codes), and 37
+    columns (ragged, rows not 16-byte aligned) by 4-byte copies on a card
+    that holds 12 (groups of 7 codes, the last of 5).  "chunked" also runs
+    with code 0 one row short, so that codes begin on a stage's last row."""
+    variants = [_ids(kind, 704, 40, 5)]
+    if kind == "chunked":
+        variants.append(variants[0].copy())
+        variants[1][np.flatnonzero(variants[0] == 0)[0]] = 39
+    for ids in variants:
+        perm, offsets = (t.numpy() for t in K.segment_order(torch.from_numpy(ids), 40))
+        seg = ids[perm]
+        for d, resident, codes in ((40, 4, 20), (37, 12, 7)):
+            x = _rows(704, d, 4)
+            want = K.segment_sum(torch.from_numpy(x), torch.from_numpy(ids), 40).numpy()
+            assert K.segment_plan(40, d, resident) == codes
+            for late in (False, True):
+                got = _emulate_kernel(x, perm, seg, offsets, 40, late, K.SEGMENT_SLICE,
+                                      K.SEGMENT_STAGES, codes, vec=d % 4 == 0)
+                np.testing.assert_array_equal(got, want)
+
+
+def _emulate_order_kernel(ids, C):
+    """``segment_order_kernel`` block by block, warp by warp, the lanes as
+    numpy vectors: (A) the counts by shared atomics, (B) the warps' first
+    slots and the codes' offsets by the warp scans, (C) the ranks by
+    ``__match_any_sync``.  Returns (perm, offsets, outside, seg); slots
+    nobody wrote hold -1."""
+    N = len(ids)
+    perm = np.full(N, -1, np.int64)
+    seg = np.full(N, -1, np.int64)
+    offsets = np.full(C + 1, -1, np.int64)
+    outside = None
+    lanes = np.arange(32)
+    run = -(-(-(-N // OWARPS)) // 32) * 32
+    steps = []                                 # (warp, row indices, valid, ids)
+    for w in range(OWARPS):
+        a, b = min(N, w * run), min(N, w * run + run)
+        for base in range(a, b, 32 * OUNROLL):
+            for u in range(OUNROLL):
+                i = base + u * 32 + lanes
+                ok = i < b
+                v = np.where(ok, ids[np.minimum(i, max(N - 1, 0))] if N else -1, -1)
+                steps.append((w, i, ok, v))
+    for bx in range(-(-C // OCODES)):
+        c0 = bx * OCODES
+        G = min(OCODES, C - c0)
+        cnt = np.zeros((OWARPS, OCODES), np.int64)
+        below, bad = np.zeros(OWARPS, np.int64), np.zeros(OWARPS, np.int64)
+        for w, i, ok, v in steps:                                    # (A)
+            below[w] += np.sum(ok & (v >= 0) & (v < c0))
+            bad[w] += np.sum(ok & ((v < 0) | (v >= C)))
+            m = ok & (v >= c0) & (v < c0 + G)
+            np.add.at(cnt[w], v[m] - c0, 1)
+        total = np.zeros(OWARPS * 32, np.int64)                      # (B)
+        total[:G] = cnt[:, :G].sum(0)
+        cnt[:, :G] = np.cumsum(cnt[:, :G], 0) - cnt[:, :G]
+        incl = total.reshape(OWARPS, 32).copy()
+        d = 1
+        while d < 32:                                                # shfl_up scan
+            incl[:, d:] = incl[:, d:] + incl[:, :-d].copy()
+            d *= 2
+        wsum = incl[:, 31]
+        start = (incl.reshape(-1) - total + np.repeat(np.cumsum(wsum) - wsum, 32)
+                 + below.sum())[:G]
+        offsets[c0:c0 + G] = start
+        if c0 + G == C:
+            offsets[C] = start[G - 1] + total[G - 1]
+        cnt[:, :G] += start
+        if bx == 0:
+            outside = int(bad.sum())
+        for w, i, ok, v in steps:                                    # (C)
+            inn = ok & (v >= c0) & (v < c0 + G)
+            k = np.where(inn, v - c0, OCODES + lanes)
+            peers = k[:, None] == k[None, :]                         # __match_any_sync
+            rank = np.sum(peers & (lanes[None, :] < lanes[:, None]), 1)
+            pos = (cnt[w, np.minimum(k, OCODES - 1)] + rank)[inn]
+            perm[pos], seg[pos] = i[inn], (c0 + k)[inn]
+            last = inn & ~np.any(peers & (lanes[None, :] > lanes[:, None]), 1)
+            cnt[w, k[last]] += np.sum(peers, 1)[last]
+    return perm, offsets, outside, seg
+
+
+@pytest.mark.parametrize("kind", ["skewed", "spread", "mixed", "chunked", "empty", "single",
+                                  "last", "outside"])
+def test_order_kernel_emulated_equals_the_plain_order(kind):
+    """The order kernel's steps against ``segment_order``, exactly: 704 rows
+    over 40 codes (one block) and 4992 rows over 600 codes (three blocks,
+    warps' runs of three id loads), the four id kinds, no rows, one row,
+    every id the last code, and ids outside [0, C) (left out of the order,
+    and counted); ``seg`` holds each ordered row's code."""
+    for n, c in ((704, 40), (4992, 600)):
+        if kind == "empty":
+            ids = np.zeros(0, np.int64)
+        elif kind == "single":
+            ids = np.array([c // 3])
+        elif kind == "last":
+            ids = np.full(n, c - 1)
+        elif kind == "outside":
+            ids = _ids("mixed", n, c, 6)
+            ids[::7] = c + 3
+            ids[::11] = -2
+        else:
+            ids = _ids(kind, n, c, 5)
+        perm, offsets, outside, seg = _emulate_order_kernel(ids, c)
+        inside = (ids >= 0) & (ids < c)
+        want_perm, want_off = (t.numpy() for t in K.segment_order(
+            torch.from_numpy(ids[inside]), c))
+        np.testing.assert_array_equal(offsets, want_off)
+        np.testing.assert_array_equal(perm[:offsets[c]], np.flatnonzero(inside)[want_perm])
+        assert outside == np.sum(~inside)
+        np.testing.assert_array_equal(seg[:offsets[c]], ids[perm[:offsets[c]]])
+        if kind != "outside":
+            np.testing.assert_array_equal(perm, want_perm)
 
 
 # k-means and the EMA forward as they were before ``segment_sum``.

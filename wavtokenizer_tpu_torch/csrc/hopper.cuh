@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's wgmma + TMA kernels
-// (convnext.cu, vq_nearest.cu): mbarrier waits and arrivals, 2-D TMA loads,
+// (convnext.cu, vq_nearest.cu) and the segment sum's pipeline
+// (segment_sum.cu): mbarrier waits, probes and arrivals, 2-D TMA loads,
 // wgmma shared-memory descriptors, and the host-side encoding of TMA tensor
 // maps through cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint
 // so that a library links only the CUDA runtime.  encoder_front.cu takes
@@ -38,8 +39,11 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 // Waits for the phase of the given parity to complete.  A wait that has not
 // completed after 10 s traps, so a broken pipeline fails the launch instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+// of hanging the card.  A warp that need not wake at once (a producer ahead
+// of its consumers) passes sleep_ns, so that its polls leave the SM's issue
+// slots to the warps that compute.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity,
+                                          unsigned sleep_ns = 0) {
   uint32_t done = 0;
   uint64_t start = 0;
   while (true) {
@@ -49,9 +53,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
+    if (sleep_ns) __nanosleep(sleep_ns);
     if (start == 0) start = global_ns();
     else if (global_ns() - start > 10000000000ull) __trap();
   }
+}
+
+// Whether the phase of the given parity has completed, without waiting
+// (acquire: reads after a true answer see what the phase published).
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {

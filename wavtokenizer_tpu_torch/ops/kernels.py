@@ -20,7 +20,10 @@ Four kernels, CUDA C++ for ``sm_90a`` under ``wavtokenizer_tpu_torch/csrc/``:
   VQ training's k-means and EMA sums, which the JAX package takes with
   ``jax.ops.segment_sum`` (``wavtokenizer_tpu/train/vq_train.py:54,111``),
   in ascending row order per code without float atomics, so that the
-  card's sums equal the CPU's bit for bit and a training step repeats.
+  card's sums equal the CPU's bit for bit and a training step repeats: a
+  stable counting sort of the ids (``segment_order_kernel``), then the sums
+  (``segment_sum_kernel``, warp-specialised: producer warps copy rows into a
+  shared-memory ring, a consumer warp only adds).
 
 Each source is built at first use by its own ``nvcc`` call, all started
 together (the shared header ``csrc/hopper.cuh`` is part of every source's
@@ -72,7 +75,10 @@ ENTRY_POINTS = {
     },
     "encoder_front.cu": {
         "wt_encoder_front": [_vp] * 6 + [_i, _i, _vp]},
-    "segment_sum.cu": {"wt_segment_sum": [_vp] * 4 + [_i, _i, _vp]},
+    "segment_sum.cu": {
+        "wt_segment_order": [_vp, _i, _i, _i] + [_vp] * 5,
+        "wt_segment_sum": [_vp] * 5 + [_i] * 4 + [_vp],
+        "wt_segment_sum_occupancy": [_i, _vp]},
 }
 
 _lib = None
@@ -428,11 +434,12 @@ def segment_sum_reference(rows: torch.Tensor, ids: torch.Tensor,
 
 def segment_order(ids: torch.Tensor, num_segments: int,
                   counts: torch.Tensor | None = None) -> tuple:
-    """The kernel's order of the rows: (perm (N,) int32, offsets (C + 1,)
+    """Plain version of the rows' order: (perm (N,) int32, offsets (C + 1,)
     int32), code c's rows being ``perm[offsets[c]:offsets[c + 1]]`` in
     ascending row order.  ``perm`` is a stable sort by id (a unique
     permutation); ``offsets`` the prefix sum of ``counts``, the ids'
-    ``bincount(minlength=C)`` (computed here when not given), all integer."""
+    ``bincount(minlength=C)`` (computed here when not given), all integer.
+    On the card ``segment_order_card`` computes the same two arrays."""
     if counts is None:
         counts = torch.bincount(ids, minlength=num_segments)
     if counts.shape != (num_segments,):
@@ -444,14 +451,95 @@ def segment_order(ids: torch.Tensor, num_segments: int,
     return perm, offsets
 
 
+def _order_ids(ids: torch.Tensor) -> torch.Tensor:
+    """ids as the order kernel reads them: contiguous int64 or int32."""
+    if ids.dim() != 1 or ids.dtype.is_floating_point:
+        raise ValueError(f"ids must be an integer (N,) tensor; got {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    if ids.dtype not in (torch.int64, torch.int32):
+        ids = ids.long()
+    return ids.contiguous()
+
+
+def _launch_order(lib, ids: torch.Tensor, num_segments: int, stream) -> torch.Tensor:
+    """One launch of ``segment_order_kernel`` into one int32 scratch tensor:
+    perm (N), seg (N), offsets (C + 1) and the count of ids outside (1), in
+    that order."""
+    N = ids.shape[0]
+    scratch = torch.empty(2 * N + num_segments + 2, dtype=torch.int32, device=ids.device)
+    base = scratch.data_ptr()
+    _check(lib.wt_segment_order(ids.data_ptr(), int(ids.dtype == torch.int64), N, num_segments,
+                                base, base + 4 * N, base + 8 * N,
+                                base + 4 * (2 * N + num_segments + 1), stream),
+           "segment_order")
+    return scratch
+
+
+def segment_order_card(ids: torch.Tensor, num_segments: int) -> tuple:
+    """``segment_order`` on the card in one launch of ``segment_order_kernel``
+    (a stable counting sort in integers): (perm, offsets, outside, seg), where
+    ``outside`` (1,) int32 counts the ids outside [0, num_segments), whose
+    rows the order leaves out, and ``seg`` (N,) int32 is the code of each row
+    of perm.  perm and offsets equal ``segment_order``'s element for element
+    when every id is inside.  Nothing is read back."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"segment_order_card: ids are on {ids.device}, not a card")
+    ids = _order_ids(ids)
+    N, C = ids.shape[0], num_segments
+    with torch.cuda.device(ids.device):
+        scratch = _launch_order(load_library(), ids, C, _stream(ids.device))
+    return scratch[:N], scratch[2 * N:2 * N + C + 1], scratch[2 * N + C + 1:], scratch[N:2 * N]
+
+
+# The sum kernel's plan (csrc/segment_sum.cu has the same constants):
+# SEGMENT_SLICE columns a block (one consumer warp beside its producer
+# warps), a ring of SEGMENT_STAGES stages of 32 rows, and at most
+# SEGMENT_MAX_CODES codes a block (their offsets live in shared memory).  The
+# grid's second axis, ceil(C / codes) blocks, is at most 65535.
+SEGMENT_SLICE = 32
+SEGMENT_STAGES = 8
+SEGMENT_MAX_CODES = 1023
+SEGMENT_MAX_C = 65535 * SEGMENT_MAX_CODES
+_plans: dict = {}
+
+
+def segment_plan(num_segments: int, D: int, resident: int) -> int:
+    """The codes a block of ``segment_sum_kernel``, so that the (D /
+    SEGMENT_SLICE) x (C / codes) grid fits the ``resident`` blocks the card
+    holds at once (one wave) where SEGMENT_MAX_CODES allows: a block's
+    start-up is then paid once per SM."""
+    groups = max(1, resident // -(-D // SEGMENT_SLICE))
+    return min(SEGMENT_MAX_CODES, max(1, -(-num_segments // groups)))
+
+
+def segment_launch_plan(num_segments: int, D: int, device: torch.device) -> int:
+    """``segment_plan`` on the card ``device``: the blocks it holds at once
+    are the CUDA occupancy calculator's count an SM (at SEGMENT_MAX_CODES
+    codes a block) times its SMs; kept per card and shape."""
+    key = (device.index, num_segments, D)
+    if key not in _plans:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check(load_library().wt_segment_sum_occupancy(SEGMENT_MAX_CODES,
+                                                            ctypes.byref(per_sm)),
+                   "segment_sum occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _plans[key] = segment_plan(num_segments, D, max(1, per_sm.value) * sms)
+    return _plans[key]
+
+
 def segment_sum(rows: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 counts: torch.Tensor | None = None) -> torch.Tensor:
     """rows (N, D) f32, ids (N,) integer in [0, num_segments) -> (C, D) f32:
     the sum of each segment's rows, in ascending row order from +0.0.
 
     ``counts``: the ids' ``bincount(minlength=num_segments)``, where the
-    caller has it already.  On the card the same inputs give the CPU's sums
-    bit for bit, on every launch."""
+    caller has it already; the card's order does not need it, and then
+    nothing is read back to the host (without it, the count of ids outside
+    [0, num_segments) is, to raise as ``torch.bincount`` did).  On the card
+    the same inputs give the CPU's sums bit for bit, on every launch, through
+    two kernels: ``segment_order_kernel`` and ``segment_sum_kernel``.
+    ``launches`` counts calls that launched the pair: one a call."""
     if not _dispatch(rows, "segment_sum"):
         return segment_sum_reference(rows, ids, num_segments)
     N, D = rows.shape
@@ -460,18 +548,32 @@ def segment_sum(rows: torch.Tensor, ids: torch.Tensor, num_segments: int,
     if ids.device != dev or ids.shape != (N,) or ids.dtype.is_floating_point:
         raise ValueError(f"ids must be an integer (N,) = ({N},) tensor on {dev}; got "
                          f"{ids.dtype} {tuple(ids.shape)} on {ids.device}")
-    if (num_segments + 15) // 16 > 65535:
-        raise ValueError(f"segment_sum kernel takes at most 1048560 segments; got {num_segments}")
+    if num_segments > SEGMENT_MAX_C:
+        raise ValueError(f"segment_sum kernel takes at most {SEGMENT_MAX_C} segments; got "
+                         f"{num_segments}")
+    if counts is not None and counts.shape != (num_segments,):
+        raise ValueError(f"segment_sum: ids reach {counts.shape[0]} segments, more than "
+                         f"num_segments={num_segments}")
     out = torch.empty((num_segments, D), dtype=torch.float32, device=dev)
     if num_segments == 0 or D == 0:
         return out
+    codes = segment_launch_plan(num_segments, D, dev)
     if N == 0:
         return out.zero_()
-    perm, offsets = segment_order(ids, num_segments, counts)
+    ids = _order_ids(ids)
+    vec = D % 4 == 0 and rows.data_ptr() % 16 == 0
     lib = load_library()
     with torch.cuda.device(dev):
-        rc = lib.wt_segment_sum(rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-                                out.data_ptr(), num_segments, D, _stream(dev))
+        stream = _stream(dev)
+        scratch = _launch_order(lib, ids, num_segments, stream)
+        if counts is None:
+            n_out = int(scratch[-1].item())
+            if n_out:
+                raise ValueError(f"segment_sum: {n_out} ids outside [0, {num_segments}): more "
+                                 f"than num_segments={num_segments} segments")
+        base = scratch.data_ptr()
+        rc = lib.wt_segment_sum(rows.data_ptr(), base, base + 4 * N, base + 8 * N,
+                                out.data_ptr(), num_segments, D, codes, int(vec), stream)
     # No work counted: FlopCounterMode counts none for the plain index_add_.
     _count(segment_sum, 0)
     _check(rc, "segment_sum")

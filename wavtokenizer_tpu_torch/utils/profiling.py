@@ -20,7 +20,8 @@ Port of ``wavtokenizer_tpu/utils/profiling.py``:
 * ``vq_bound_of``, ``convnext_bound``, ``front_bound_of``,
   ``segment_sum_bound``: the least time of one kernel call on the card, the larger of its operations over the peak of
   their type and its bytes (each input read once, each output written once)
-  over the memory rate.
+  over the memory rate; ``segment_chain_ms``: the segment sum's floor under
+  its fixed order (the largest code's chain of dependent adds).
 * ``pipeline_stages``: the codec's stages (encoder, VQ, backbone, head and
   the totals) as a stage map.
 """
@@ -130,6 +131,17 @@ def segment_sum_bound(N: int, C: int, D: int, peaks: dict = H100) -> tuple:
     N D fp32 adds, against the rows (f32) and ids (int64) read once and the
     (C, D) sums written once."""
     return _bound(N * D / peaks["fp32"], (N * D * 4 + N * 8 + C * D * 4) / peaks["bytes"])
+
+
+# Cycles of one dependent fp32 add on the card's CUDA cores.
+FADD_CYCLES = 4
+
+
+def segment_chain_ms(max_count: int, sm_mhz: float) -> float:
+    """The least ms of a segment sum that keeps the CPU's order: the largest
+    code's rows are one chain of ``max_count`` dependent fp32 adds per
+    column, at FADD_CYCLES cycles each at an SM clock of ``sm_mhz``."""
+    return max_count * FADD_CYCLES / (sm_mhz * 1e3)
 
 
 # ---------------------------------------------------------------------------
