@@ -31,9 +31,11 @@ the card against the CPU from one state (losses, gradient norm, VQ state,
 k-means' codes), the VQ kernel at k-means' shapes (means drawn with
 replacement, the pack made per call), the step of the small-320 YAML at
 batch 40 x 3 s timed (memory, phases, profile, 202 VQ launches on the first
-step and 2 after), and tools/train.py as a subprocess whose checkpoint
-reloads through from_train_checkpoint and, exported to the Lightning
-layout, through from_pretrained0828.
+step and 2 after), and tools/train.py as a subprocess at PyTorch's default
+precision: its checkpoint reloads through from_train_checkpoint and,
+exported to the Lightning layout, through from_pretrained0828, and a second
+run from the same seed, and a 2-batch run resumed to 3, write the same
+checkpoint bit for bit.
 
 Then the plain-Vocos family ([13]): the vocos-mel-24khz config
 (wavtokenizer_tpu_torch/configs/vocos_mel_24khz.yaml) at full width through
@@ -48,8 +50,10 @@ Then the research layer ([15]) at small-320 width: enhanced_forward (frozen
 encoder through the front kernel -> adapter -> SEANet decoder) at 8 x 72 000
 card against CPU with one front launch each, the kernel against its plain
 version on that batch and timed there; one enhance_step in each of the four
-modes card against CPU (two front launches a step in feature and hybrid);
-the waveform step, enhance_infer's forward and a BYOL step timed; device
+modes card against CPU (two front launches a step in feature and hybrid),
+and each mode's step and a BYOL step twice from one state under
+repeatable_steps, bit for bit; the waveform step, enhance_infer's forward
+and a BYOL step timed; device
 resampling against the host resampler at 16 x 10 s; and the enhancement,
 BYOL and low-pass CLIs as subprocesses on the card.
 
@@ -60,10 +64,12 @@ one state after its first step (k-means split out), one batch, one step in
 each of fp32, fp32 with remat, bf16 discriminators, and bf16 discriminators
 and decode side (ms, peak memory, VQ launches; remat against no remat phase
 by phase, bf16 against fp32 at the JAX package's tolerances, the same codes
-in every mode); tools/mem_probe.py with and without remat, check_env.py,
-perf_profile.py (its stage table with MFU; its stage sum against [6]'s round
-trip) and train_profile.py as subprocesses; stage_flops with the kernels
-against the plain versions; the MS-STFT discriminator card against CPU.
+in every mode), and in each mode and at PyTorch's default precision the
+cost of repeatable_steps (steps with and without it, in turns);
+tools/mem_probe.py with and without remat, check_env.py, perf_profile.py
+(its stage table with MFU; its stage sum against [6]'s round trip) and
+train_profile.py as subprocesses; stage_flops with the kernels against the
+plain versions; the MS-STFT discriminator card against CPU.
 The card's peaks and the kernels' bounds come from
 wavtokenizer_tpu_torch/utils/profiling.py.
 
@@ -85,10 +91,16 @@ path, equal bit for bit to index_add_ on the CPU and to their own second
 launch, one launch of each in a call's trace and no sort, each kernel timed
 alone beside the bound, the chain floor and index_add_ on the card, and the
 wrapper's host time; and the YAML's step run twice
-from one state under cuDNN's deterministic algorithms alone: every
-quantity equal.  The golden gate of [4] is the library's
-(utils/golden.py::check_codes); [12], [16] and [17] count the segment-sum
-launches too (202 on the first step, 2 a step after).
+from one state under repeatable_steps (cuDNN's deterministic algorithms,
+as every trainer runs its steps): every quantity equal.  The golden gate of
+[4] is the library's (utils/golden.py::check_codes); [12], [16] and [17]
+count the segment-sum launches too (202 on the first step, 2 a step after).
+
+And the VQ's effective_expiry ([19]): one vq_train_forward with it at the
+YAML's VQ (N = 9000, 4096 x 512, k-means 200 iterations) from an un-inited
+layer on rows of exact integer points, card against CPU (ids equal, state
+within 1e-5), the expired codes' EMA rows checked, and the same forward
+without it giving the same ids, rows and loss.
 
 Every phase prints a flushed line; any failure exits non-zero.  The line
 before the last is one JSON object with a row per kernel; the last line is
@@ -98,6 +110,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,6 +159,18 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def default_precision():
+    """PyTorch's default precision, the one the CLIs run at (cuDNN TF32 on,
+    cuBLAS matmuls in fp32), inside; this process runs with TF32 off."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def launch_counts(K) -> dict:
@@ -955,9 +980,39 @@ def train_timing(K) -> dict:
     return out
 
 
+def _state_leaves(tree, path: str = "") -> list:
+    """(path, leaf) of every tensor and number of a tree, in key order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree, key=str) for kv in _state_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _state_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def _trees_equal(a, b) -> tuple:
+    """(whether two trees of tensors and numbers are equal bit for bit, the
+    number of leaves compared, the first paths of the leaves that differ)."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False, len(la), ["the trees' keys differ"]
+    differ = [p for (p, x), (_, y) in zip(la, lb)
+              if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)]
+    return not differ, len(la), differ[:5]
+
+
+def _checkpoints_equal(a: str, b: str) -> tuple:
+    """``_trees_equal`` of two checkpoint files."""
+    return _trees_equal(*(torch.load(p, map_location="cpu", weights_only=True) for p in (a, b)))
+
+
 def train_cli_phase(spec) -> dict:
     """Phase 12 (d): ``tools.train fit`` as a subprocess on 8 WAVs of 3.5 s
-    (batch 8) with the small-320 YAML, 3 batches; its checkpoint through
+    (batch 8) with the small-320 YAML, at PyTorch's default precision (cuDNN
+    TF32 on): 3 batches, the same again from the same seed, and 2 batches
+    resumed to 3 with ``--resume`` (the first three at once, then the
+    resume).  The repeat's and the resumed run's ``last.pt`` must equal the
+    first's bit for bit (every tensor of gen, disc, vq, decoder, both
+    optimizers' moments, step).  The first run's checkpoint through
     ``from_train_checkpoint``, and its Lightning export through
     ``from_pretrained0828`` against the same model on the CPU."""
     import json as _json
@@ -990,15 +1045,47 @@ def train_cli_phase(spec) -> dict:
             cfg = yaml.safe_load(f)
         for part in ("train_params", "val_params"):
             cfg["data"]["init_args"][part].update(filelist_path=filelist, batch_size=8)
-        cfg_path, run = os.path.join(d, "train.yaml"), os.path.join(d, "run")
+        cfg_path = os.path.join(d, "train.yaml")
         with open(cfg_path, "w") as f:
             yaml.safe_dump(cfg, f)
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "wavtokenizer_tpu_torch.tools.train", "fit",
-                              "--config", cfg_path, "--out-dir", run, "--max-batches", "3"],
-                             cwd=root, capture_output=True, text=True, timeout=900)
-        out["cli_s"] = time.perf_counter() - t0
-        check(res.returncode == 0, f"tools.train fit failed:\n{res.stderr[-3000:]}")
+
+        def fit(runs: dict) -> float:
+            """{directory name: extra arguments}, all started together."""
+            t0 = time.perf_counter()
+            procs = {name: subprocess.Popen(
+                [sys.executable, "-m", "wavtokenizer_tpu_torch.tools.train", "fit", "--config",
+                 cfg_path, "--out-dir", os.path.join(d, name), *args], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for name, args in runs.items()}
+            results = {}
+            try:
+                for name, proc in procs.items():
+                    results[name] = proc.communicate(timeout=900)[1], proc.returncode
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for name, (err, rc) in results.items():
+                check(rc == 0, f"tools.train fit ({name}) failed:\n{err[-3000:]}")
+            return time.perf_counter() - t0
+
+        out["cli_s"] = [fit({"run": ["--max-batches", "3"], "repeat": ["--max-batches", "3"],
+                             "two": ["--max-batches", "2"]}),
+                        fit({"resumed": ["--max-batches", "3", "--resume",
+                                         os.path.join(d, "two", "last.pt")]})]
+        run = os.path.join(d, "run")
+        for name in ("repeat", "resumed"):
+            same, n, differ = _checkpoints_equal(os.path.join(run, "last.pt"),
+                                                 os.path.join(d, name, "last.pt"))
+            out[name] = {"equal": same, "leaves": n, "differ": differ}
+            check(same, f"tools.train fit: the {name} run's last.pt differs from the first run's "
+                        f"in {differ}")
+        with open(os.path.join(d, "resumed", "metrics.jsonl")) as f:
+            events = [_json.loads(line) for line in f]
+        out["loader"] = [e["event"] for e in events if e.get("event", "").startswith("native")]
+        check(any(e.get("event") == "resume" and e.get("step") == 2 for e in events),
+              f"the resumed run did not resume at step 2: {events[:3]}")
         with open(os.path.join(run, "metrics.jsonl")) as f:
             rows = [_json.loads(line) for line in f]
         steps = [r for r in rows if "gen_total" in r]
@@ -1372,7 +1459,7 @@ def research_phase(K) -> dict:
     from wavtokenizer_tpu_torch import WavTokenizerSpec, init_wavtokenizer
     from wavtokenizer_tpu_torch.checkpoint.convert import adapter_from_jax, byol_from_jax
     from wavtokenizer_tpu_torch.models.seanet import encoder_layer_specs
-    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32, repeatable_steps
     from wavtokenizer_tpu_torch.ops.resample import resample
     from wavtokenizer_tpu_torch.research.adapter import (base_params_from_jax,
                                                          enhanced_forward, frozen_encode,
@@ -1474,8 +1561,29 @@ def research_phase(K) -> dict:
               f"{r['grad_norm_limit']:.3g})")
         out["steps"][mode] = r
 
-    # (c) timing: the waveform step at 8 x 3 s.
+    # (b) the steps repeat: one step of each mode twice from one state, as
+    # tools/enhance_train.py runs them (repeatable_steps, PyTorch's default
+    # precision): the trainable trees, BN state, Adam's state, loss and
+    # gradient norm bit for bit; the waveform mode also at (c)'s batch.
     noisy, clean = torch.from_numpy(noisy_np).cuda(), torch.from_numpy(clean_np).cuda()
+    out["repeat"] = {}
+    with default_precision(), repeatable_steps():
+        batches = [(m, torch.from_numpy(sn).cuda(), torch.from_numpy(sc).cuda())
+                   for m in ENHANCE_MODES]
+        for mode, a, b in batches + [(f"waveform {ENHANCE_B} x {ENHANCE_T}", noisy, clean)]:
+            runs = []
+            for _ in range(2):
+                s = _enhance_state(params_np, spec, mode.split()[0], "cuda")
+                loss, g_norm = _enhance_step(s, spec, a, b)
+                runs.append({"adapter": s["ap"], "bn": s["st"], "decoder": s["base"]["decoder"],
+                             "transformer": s["tr"] or {}, "adam": s["opt"].state_dict()["state"],
+                             "loss": float(loss), "grad_norm": float(g_norm)})
+            out["repeat"][mode] = _trees_equal(*runs)[:2]
+            check(out["repeat"][mode][0], f"enhance_step {mode} against its repeat: "
+                                          f"{_trees_equal(*runs)[2]} differ")
+    del runs, s, batches
+
+    # (c) timing: the waveform step at 8 x 3 s.
     s = _enhance_state(params_np, spec, "waveform", "cuda")
     for _ in range(2):
         _enhance_step(s, spec, noisy, clean)
@@ -1522,6 +1630,21 @@ def research_phase(K) -> dict:
     out["byol_loss"] = float(bl)
     check(np.isfinite(out["byol_loss"]), "BYOL step: non-finite loss")
     del bp, opt, online
+    # One BYOL step twice from one state, as tools/byol_train.py runs it.
+    runs = []
+    with default_precision(), repeatable_steps():
+        for _ in range(2):
+            bp = byol_from_jax(init_byol(bcfg, seed=0), "cuda")
+            online = tree_leaves(bp["online"])
+            for t in online:
+                t.requires_grad_(True)
+            opt = torch.optim.Adam(online, lr=3e-4, betas=(0.9, 0.999), eps=1e-8)
+            bl = byol_step(bp, opt, v1, v2, bcfg, bcfg.tau)
+            runs.append({"params": bp, "adam": opt.state_dict()["state"], "loss": float(bl)})
+    out["repeat"]["byol_step"] = _trees_equal(*runs)[:2]
+    check(out["repeat"]["byol_step"][0], f"byol_step against its repeat: "
+                                         f"{_trees_equal(*runs)[2]} differ")
+    del runs, bp, opt, online
 
     # (d) resampling to 24 kHz at 16 x 10 s.
     out["resample"] = {}
@@ -1725,6 +1848,32 @@ def _remat_by_phase(S, base: dict, audio, spec, tcfg, generator) -> dict:
     return diff(runs[0], runs[1]), diff(runs[0], runs[2])
 
 
+COST_PAIRS = 5              # (b): steps with and without repeatable_steps, in turns
+
+
+def _flag_cost(step) -> dict:
+    """The cost of ``repeatable_steps``: ``step(i)`` timed in turns with the
+    flags and without (PyTorch's default: cuDNN may pick nondeterministic
+    algorithms), one warm-up pair, then COST_PAIRS pairs; the median ms of
+    each side and their difference."""
+    from wavtokenizer_tpu_torch.models.wavtokenizer import repeatable_steps
+
+    ms = {"with": [], "without": []}
+    for i in range(COST_PAIRS + 1):
+        for side in ("with", "without"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with repeatable_steps() if side == "with" else contextlib.nullcontext():
+                step(2 * i + (side == "without"))
+            torch.cuda.synchronize()
+            if i:
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"ms": ms, "with_ms": med["with"], "without_ms": med["without"],
+            "cost_ms": med["with"] - med["without"],
+            "cost_pct": 100.0 * (med["with"] - med["without"]) / med["without"]}
+
+
 def _run_cli(name: str, root: str) -> tuple:
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", *OPTION_CLIS[name]], cwd=root,
@@ -1861,11 +2010,21 @@ def options_phase(K, rt_ms: float) -> dict:
                     grads[name] = _flat_grads(st["opt_gen"])
                     codes[name] = [c.cpu() for c in codes_seen]
             r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["flag"] = _flag_cost(lambda i: S.train_step(st, audio, spec, cfg,
+                                                          step_generator(0, 3 + i)))
+            codes_seen.clear()
             modes[name] = r
             del st
             torch.cuda.empty_cache()
     finally:
         S.vq_train_forward = real_forward
+    # The same at PyTorch's default precision (cuDNN TF32 on), the CLIs'.
+    st = _copy_state(S, base, tcfg)
+    with default_precision():
+        out["default_flag"] = _flag_cost(lambda i: S.train_step(st, audio, spec, tcfg,
+                                                                step_generator(0, 3 + i)))
+    del st
+    torch.cuda.empty_cache()
     out["remat"], out["remat_floor"] = _remat_by_phase(S, base, audio, spec, tcfg,
                                                        step_generator(0, 1))
     del base
@@ -1971,7 +2130,7 @@ def options_phase(K, rt_ms: float) -> dict:
 # extraction with two replicas on this card; (d) the ConvNeXt kernel on
 # tensor-parallel slices of its hidden width.
 # (a): the step of a group of one against the plain step from one state,
-# with cuDNN's deterministic algorithms alone (the VQ statistics, which the
+# under repeatable_steps (the VQ statistics, which the
 # generator phase reads, go through the segment-sum kernel, in a fixed
 # order); each quantity is held to 1e-6 relative or to 4x the plain step's
 # difference from its own repeat, whichever is larger.
@@ -2028,6 +2187,7 @@ def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
     import torch.distributed as dist
 
     import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch.models.wavtokenizer import repeatable_steps
     from wavtokenizer_tpu_torch.parallel import mesh as M
     from wavtokenizer_tpu_torch.train.trainer import step_generator
 
@@ -2038,9 +2198,7 @@ def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
     base = S.create_train_state(spec, tcfg, seed=0, device=dev)
     S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
     out = {"B": B, "T": T}
-    det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with repeatable_steps():
         plain = [S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
                               step_generator(0, 1), with_grad_norm=True) for _ in range(2)]
         M.init_distributed(backend, dev, f"tcp://127.0.0.1:{_free_port()}", 0, 1)
@@ -2062,8 +2220,6 @@ def nccl_world_one(K, dev: str = "cuda", backend: str = "nccl") -> dict:
             dist.barrier()
         finally:
             dist.destroy_process_group()
-    finally:
-        torch.backends.cudnn.deterministic = det
     out["rel"] = _step_diff(dist_step, plain[0])
     out["floor"] = _step_diff(plain[1], plain[0])
     out["grad_norm"] = (float(dist_step[1]["grad_norm"]), float(plain[0][1]["grad_norm"]))
@@ -2353,8 +2509,8 @@ def tp_shards_phase(K, block: dict, T_frames: int, dev: str = "cuda") -> dict:
 # (zeros + index_add_, float atomics) and index_add_ alone, each kernel
 # alone from one trace of SEGMENT_REPS calls (which must hold one event of
 # each a call and no sort), and the wrapper's host time.  (b) The YAML's step from
-# one state past its first step, twice, under cuDNN's deterministic
-# algorithms alone: metrics, gradients, weights and VQ state equal (0).
+# one state past its first step, twice, under repeatable_steps (cuDNN's
+# deterministic algorithms): metrics, gradients, weights and VQ state equal (0).
 SEGMENT_SHAPE = (9000, 4096, 512)
 SEGMENT_REPS = 10
 
@@ -2413,6 +2569,7 @@ def _host_ms(fn, n: int = 20) -> float:
 
 def determinism_phase(K, dev: str = "cuda", real_ids: dict | None = None) -> dict:
     import wavtokenizer_tpu_torch.train.step as S
+    from wavtokenizer_tpu_torch.models.wavtokenizer import repeatable_steps
     from wavtokenizer_tpu_torch.train.trainer import step_generator
     from wavtokenizer_tpu_torch.utils.profiling import segment_chain_ms, segment_sum_bound
 
@@ -2473,9 +2630,7 @@ def determinism_phase(K, dev: str = "cuda", real_ids: dict | None = None) -> dic
                             .astype(np.float32)).to(dev)
     base = S.create_train_state(spec, tcfg, seed=0, device=dev)
     S.train_step(base, audio, spec, tcfg, step_generator(0, 0))
-    det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with repeatable_steps():
         check(not torch.are_deterministic_algorithms_enabled(),
               "torch.use_deterministic_algorithms is on")
         runs, out["step_launches"] = [], []
@@ -2484,13 +2639,97 @@ def determinism_phase(K, dev: str = "cuda", real_ids: dict | None = None) -> dic
             runs.append(S.train_step(_copy_state(S, base, tcfg), audio, spec, tcfg,
                                      step_generator(0, 1), with_grad_norm=True))
             out["step_launches"].append(K.segment_sum.launches)
-    finally:
-        torch.backends.cudnn.deterministic = det
     out["B"], out["T"] = B, T
     out["repeat"] = _step_diff(runs[1], runs[0])
     check(out["step_launches"] == [2, 2], f"segment_sum launches {out['step_launches']}")
     check(all(v == 0 for v in out["repeat"].values()),
           f"the step against its repeat: {out['repeat']} (expected 0)")
+    return out
+
+
+# [19]: the VQ's effective_expiry at the training shape.  The rows are
+# EXPIRY_POINTS integer points in [-8, 8]^512, each repeated: every product,
+# sum and distance of k-means is then an exact integer in fp32 (and in the
+# kernel's 3xTF32), so equal codes are exact ties on both devices (the lowest
+# index wins) and no other distance comes near a tie; the random encoder's
+# rows cannot hold the card's ids to the CPU's ([12] (b)).
+EXPIRY_POINTS = 2048
+EXPIRY_SEED = 23
+
+
+def expiry_phase(K) -> dict:
+    """Phase 19: one ``vq_train_forward(effective_expiry=True)`` of the
+    small-320 YAML's VQ (4096 x 512, k-means 200 iterations, threshold 2,
+    decay 0.99) from an un-inited layer at 40 x 225 frames (N = 9000), on the
+    card and on the CPU from generators of one seed; on the card also
+    without the option.  The ids equal the CPU's, the state within 1e-5 of
+    each tensor's largest magnitude; the expired codes' ``embed_avg`` rows
+    are ``decay * replacement + (1 - decay) * embed_sum`` (the replacement
+    the generator's second draw, after k-means'); without the option the
+    ids, quantized rows and commitment loss are the same bit for bit."""
+    from wavtokenizer_tpu_torch.train.vq_train import sample_indices, vq_train_forward
+
+    spec, _, data, _ = _train_yaml()
+    cfg = spec.vq
+    B, T = data.batch_size, data.num_samples // spec.hop_length
+    N, C, D = B * T, cfg.bins, cfg.dimension
+    rng = np.random.default_rng(19)
+    points = rng.integers(-8, 9, size=(EXPIRY_POINTS, D)).astype(np.float32)
+    x = torch.from_numpy(points[rng.integers(0, EXPIRY_POINTS, N)].reshape(B, T, D))
+    params = {"embed": torch.zeros(1, C, D), "embed_avg": torch.zeros(1, C, D),
+              "cluster_size": torch.zeros(1, C), "inited": torch.zeros(1, 1)}
+    out = {"N": N, "C": C, "D": D, "threshold": cfg.threshold_ema_dead_code,
+           "decay": cfg.decay, "kmeans_iters": cfg.kmeans_iters}
+    runs = {}
+    for name, dev, flag in (("card", "cuda", True), ("card, off", "cuda", False),
+                            ("cpu", "cpu", True)):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        q, codes, commit, new = vq_train_forward(
+            {k: v.to(dev) for k, v in params.items()}, cfg, x.to(dev),
+            generator=torch.Generator().manual_seed(EXPIRY_SEED), effective_expiry=flag)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            out.setdefault("launches", {})[name] = {"vq_nearest": K.vq_nearest.launches,
+                                                    "segment_sum": K.segment_sum.launches}
+        out.setdefault("s", {})[name] = time.perf_counter() - t0
+        runs[name] = (q.cpu(), codes.cpu(), commit.cpu(), {k: v.cpu() for k, v in new.items()})
+    (q, codes, commit, new), cpu = runs["card"], runs["cpu"]
+    ids = codes.reshape(-1).long()
+    # An un-inited layer's ids are k-means' last assignment, so its counts
+    # are the ones the expiry reads.
+    expired = torch.bincount(ids, minlength=C) < cfg.threshold_ema_dead_code
+    g = torch.Generator().manual_seed(EXPIRY_SEED)
+    sample_indices(N, C, g)                                # k-means' draw
+    x_flat = x.reshape(N, D)
+    rows = x_flat[sample_indices(N, C, g)]
+    embed_sum = torch.zeros(C, D).index_add_(0, ids, x_flat)
+    want = rows * cfg.decay + embed_sum * (1 - cfg.decay)
+    got = new["embed_avg"][0]
+    out["expired"] = int(expired.sum())
+    out["codes_used"] = int((torch.bincount(ids, minlength=C) > 0).sum())
+    out["expired_rows_err"] = float((got[expired] - want[expired]).abs().max())
+    out["id_flips"] = int((codes != cpu[1]).sum())
+    out["state_rel"] = {k: float((v - cpu[3][k]).abs().max())
+                        / max(float(cpu[3][k].abs().max()), 1e-30) for k, v in new.items()}
+    off = runs["card, off"]
+    out["off_equal"] = {"ids": torch.equal(codes, off[1]), "quantized": torch.equal(q, off[0]),
+                        "commit": torch.equal(commit, off[2])}
+    out["off_state_differs"] = not torch.equal(new["embed_avg"], off[3]["embed_avg"])
+    check(out["expired"] > 0, "effective_expiry: no code expired")
+    check(out["id_flips"] == 0, f"effective_expiry: {out['id_flips']} ids differ from the CPU's")
+    check(max(out["state_rel"].values()) <= 1e-5,
+          f"effective_expiry: state card vs CPU {out['state_rel']} (limit 1e-5)")
+    check(out["expired_rows_err"] == 0.0,
+          f"effective_expiry: expired embed_avg rows off decay * replacement + (1 - decay) * "
+          f"embed_sum by {out['expired_rows_err']:.3g}")
+    check(all(out["off_equal"].values()) and out["off_state_differs"],
+          f"effective_expiry against the forward without it: {out['off_equal']}, state differs "
+          f"{out['off_state_differs']}")
+    for name in ("card", "card, off"):
+        want_launches = {"vq_nearest": cfg.kmeans_iters + 1, "segment_sum": cfg.kmeans_iters + 1}
+        check(out["launches"][name] == want_launches,
+              f"{name}: launches {out['launches'][name]}, expected {want_launches}")
     return out
 
 
@@ -2892,8 +3131,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     tc = train_cli_phase(small320)
     log(f"[12 train] (d) tools.train fit --max-batches 3 on 8 WAVs x 3.5 s, batch 8 "
-        f"(subprocess, PyTorch's default precision): {tc['cli_s']:.1f} s, {tc['rows']} "
-        f"metrics row(s), step 0 gen_total {tc['row0']['gen_total']:.4g}, checkpoint "
+        f"(subprocesses, PyTorch's default precision; the run, its repeat from the same seed "
+        f"and a 2-batch run at once in {tc['cli_s'][0]:.1f} s, then the 2-batch run resumed to "
+        f"3 in {tc['cli_s'][1]:.1f} s; loader {tc['loader']}): last.pt of the repeat equal to "
+        f"the run's bit for bit ({tc['repeat']['equal']}, {tc['repeat']['leaves']} leaves), of "
+        f"the resumed run ({tc['resumed']['equal']}, {tc['resumed']['leaves']} leaves); "
+        f"{tc['rows']} metrics row(s), step 0 gen_total {tc['row0']['gen_total']:.4g}, checkpoint "
         f"{tc['ckpt_gb']:.2f} GB; from_train_checkpoint vs its Lightning export through "
         f"from_pretrained0828: {tc['trained_vs_0828']} of {tc['n_ids']} ids differ; the export "
         f"on the card vs the CPU: {tc['card_vs_cpu']} differ (limit {max_flips(tc['n_ids'])}; "
@@ -2960,6 +3203,11 @@ def main() -> int:
             f"(limit 1e-3); grad norm rel {r['grad_norm_rel']:.3g} (limit "
             f"{r['grad_norm_limit']:.3g}; the CPU against itself for a 1e-7 relative input "
             f"change {r['cpu_self_grad_norm_rel']:.3g})")
+    log("[15 research] (b) each step twice from one state under repeatable_steps at PyTorch's "
+        "default precision (the CLIs'), against its repeat bit for bit (equal, leaves "
+        "compared: trainable trees, BN state, Adam's state, loss, grad norm): " + ", ".join(
+            f"{mode} {r[0]} ({r[1]})" for mode, r in rs["repeat"].items())
+        + f" (B=2 x 24000 unless stated; byol_step 16 x 64 frames); card {card}")
     log(f"[15 research] (c) waveform-mode enhance_step B={rs['B']} x {rs['T']}: "
         f"{rs['step_ms']:.1f} ms a step over 10 steps after 2 warm-up = "
         f"{audio_s / (rs['step_ms'] / 1e3):.2f} audio-s/s, peak memory {rs['peak_gb']:.2f} GB "
@@ -3005,6 +3253,14 @@ def main() -> int:
             f"it), vq_nearest launches {r['launches']}, segment_sum {r['seg_launches']}; the whole "
             f"step against fp32: gradient cosine "
             f"{r['grad_cos']:.6f}, worst {worst} rel {r['rel'][worst]:.3g}; card {card}")
+    costs = {**{name: r["flag"] for name, r in op["modes"].items()},
+             "default precision (cuDNN TF32)": op["default_flag"]}
+    for name, c in costs.items():
+        log(f"[16 options] (b) repeatable_steps' cost, {name}: median of {COST_PAIRS} steps with "
+            f"it {c['with_ms']:.1f} ms, without {c['without_ms']:.1f} ms (in turns, after a "
+            f"warm-up pair): {c['cost_ms']:+.1f} ms = {c['cost_pct']:+.2f}%; with "
+            + ", ".join(f"{t:.1f}" for t in c["ms"]["with"]) + "; without "
+            + ", ".join(f"{t:.1f}" for t in c["ms"]["without"]) + f" ms; card {card}")
     log(f"[16 options] (b) losses, fp32 step: " + ", ".join(
         f"{k} {v:.5g}" for k, v in fp32["metrics"].items()) + f"; codes equal in all "
         f"{len(op['modes'])} modes (limits: bf16 BF16_TOLS, cosine > 0.9)")
@@ -3043,7 +3299,8 @@ def main() -> int:
     nc = nccl_world_one(K)
     log(f"[17 multicard] (a) NCCL group of one rank (in process, TCP on localhost): one step of "
         f"{TRAIN_CONFIG} at {nc['B']} x {nc['T']} from a state past its first step, against the "
-        f"plain step (cuDNN's deterministic algorithms, for both), relative: " + ", ".join(
+        f"plain step (both under repeatable_steps: cuDNN's deterministic algorithms), relative: "
+        + ", ".join(
             f"{k} {v:.3g}" for k, v in nc["rel"].items()) + "; the plain step against its "
         f"repeat: " + ", ".join(f"{k} {v:.3g}" for k, v in nc["floor"].items())
         + f" (limits: {NCCL_STEP_TOL} or 4x that); grad norm {nc['grad_norm'][0]:.8g} / "
@@ -3105,7 +3362,7 @@ def main() -> int:
             f"index_add_ alone {r['library_ms']:.4f} ms; card {card}")
         log(f"[18 profile] segment_sum {ids_kind}: {r['profile']}")
     log(f"[18 determinism] (b) {TRAIN_CONFIG} at {dt['B']} x {dt['T']}, one state past its first "
-        f"step, the step twice under cudnn.deterministic alone (no "
+        f"step, the step twice under repeatable_steps (cuDNN's deterministic algorithms; no "
         f"use_deterministic_algorithms): " + ", ".join(
             f"{k} {v:.3g}" for k, v in dt["repeat"].items())
         + f" (limit 0); segment_sum launches {dt['step_launches']}; card {card}")
@@ -3115,6 +3372,22 @@ def main() -> int:
         f"own; in the whole run {TRACES['taken']} traces were taken (with the warm-up), "
         f"{TRACES['lost']} of them lost records and were taken again")
     log(f"[18 determinism] phase time {time.perf_counter() - t18:.1f} s")
+
+    # -- 19. the VQ's effective_expiry at the training shape --------------
+    t19 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ex = expiry_phase(K)
+    log(f"[19 expiry] vq_train_forward(effective_expiry=True), {TRAIN_CONFIG}'s VQ (k-means "
+        f"{ex['kmeans_iters']} iterations, threshold {ex['threshold']}, decay {ex['decay']}) from "
+        f"an un-inited layer at N={ex['N']} C={ex['C']} D={ex['D']} ({EXPIRY_POINTS} integer "
+        f"points, repeated): {ex['expired']} codes expired ({ex['codes_used']} in use after "
+        f"k-means); ids card vs CPU {ex['id_flips']} differ; state card vs CPU rel-max "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ex["state_rel"].items()) + " (limit 1e-5); "
+        f"expired embed_avg rows against decay * replacement + (1 - decay) * embed_sum: max abs "
+        f"err {ex['expired_rows_err']:.3g}; against the forward without it: {ex['off_equal']} "
+        f"(equal), state differs {ex['off_state_differs']}; launches {ex['launches']}; "
+        f"forward s " + ", ".join(f"{k} {v:.2f}" for k, v in ex["s"].items()) + f"; card {card}")
+    log(f"[19 expiry] phase time {time.perf_counter() - t19:.1f} s")
 
     rows = [
         {"name": "vq_nearest", "route": "cuda",
@@ -3135,7 +3408,8 @@ def main() -> int:
                    "launches_first_step": tt["launches_first"],
                    "launches_per_step": tt["launches_per_step"][-1],
                    "launches_per_step_by_option": {
-                       name: r["launches"][-1] for name, r in op["modes"].items()}}},
+                       name: r["launches"][-1] for name, r in op["modes"].items()},
+                   "launches_expiry_forward": ex["launches"]["card"]["vq_nearest"]}},
         {"name": "convnext_block", "route": "cuda",
          "source": "wavtokenizer_tpu_torch/csrc/convnext.cu",
          "replaces": "wavtokenizer_tpu/ops/kernels.py:100",
@@ -3178,6 +3452,7 @@ def main() -> int:
          "host_ms": dt["ids"]["skewed"]["host_ms"],
          "slice_cols": K.SEGMENT_SLICE, "codes_per_block": dt["codes_per_block"],
          "launches_per_step": tt["seg_launches_per_step"][-1],
+         "launches_expiry_forward": ex["launches"]["card"]["segment_sum"],
          **{kind: {k: dt["ids"][kind][k]
                    for k in ("ms", "kernel_ms", "order_kernel_ms", "host_ms", "plain_ms",
                              "library_ms", "max_abs_err", "chain_ms", "max_count", "codes_used")}

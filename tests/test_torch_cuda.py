@@ -354,14 +354,15 @@ def test_train_step_card_matches_cpu(cuda):
     is the kernel).  The codebook is inited around the encoder's output so
     that its codes are well separated in fp32.
 
-    The card runs cuDNN's deterministic algorithms, so that its steps repeat
-    bit for bit (the VQ's sums and the STFT's backward do without float
-    atomics): the second step holds a VQ near-tie (one row of the
+    The card runs under ``repeatable_steps`` (cuDNN's deterministic
+    algorithms), as the trainers do, so that its steps repeat bit for bit
+    (the VQ's sums and the STFT's backward do without float atomics): the
+    second step holds a VQ near-tie (one row of the
     discriminator phase 1.1e-5 from two codes, relative) that the CPU itself
     tips under a 1e-7 relative change of the input, and run-to-run rounding
     on the card tipped it too, the commit loss then 1% off."""
     from wavtokenizer_tpu_torch.models.seanet import seanet_encode
-    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32
+    from wavtokenizer_tpu_torch.models.wavtokenizer import full_fp32, repeatable_steps
     from wavtokenizer_tpu_torch.train.step import (create_train_state, train_step, tree_map)
     from wavtokenizer_tpu_torch.train.wnorm import fold_tree
 
@@ -377,22 +378,91 @@ def test_train_step_card_matches_cpu(cuda):
                  "cluster_size": torch.ones(1, 32), "inited": torch.ones(1, 1)}
     card = create_train_state(spec, tcfg, seed=0, device=cuda)
     card["vq"] = tree_map(lambda t: t.to(cuda), cpu["vq"])
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        with full_fp32():
-            for step in range(2):
-                _, m_cpu = train_step(cpu, audio, spec, tcfg,
-                                      torch.Generator().manual_seed(step), bandwidth_id=step + 1)
-                _, m_card = train_step(card, audio.to(cuda), spec, tcfg,
-                                       torch.Generator().manual_seed(step), bandwidth_id=step + 1)
-                for k, v in m_cpu.items():
-                    assert abs(float(m_card[k]) - float(v)) <= 1e-3 * abs(float(v)), (step, k)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    with full_fp32(), repeatable_steps():
+        for step in range(2):
+            _, m_cpu = train_step(cpu, audio, spec, tcfg,
+                                  torch.Generator().manual_seed(step), bandwidth_id=step + 1)
+            _, m_card = train_step(card, audio.to(cuda), spec, tcfg,
+                                   torch.Generator().manual_seed(step), bandwidth_id=step + 1)
+            for k, v in m_cpu.items():
+                assert abs(float(m_card[k]) - float(v)) <= 1e-3 * abs(float(v)), (step, k)
     for k in cpu["vq"]:
         want = cpu["vq"][k]
         assert float((card["vq"][k].cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# The narrowest codec a config file can describe (the YAML fixes the SEANet
+# widths: 32 filters, dimension 512), hop 32, with a file list.
+CLI_YAML = """\
+seed_everything: 3407
+model:
+  class_path: decoder.experiment.WavTokenizer
+  init_args:
+    sample_rate: 24000
+    feature_extractor:
+      class_path: decoder.feature_extractors.EncodecFeatures
+      init_args: {{bandwidths: [6.6, 6.6, 6.6, 6.6], dowmsamples: [4, 2, 2, 2], vq_bins: 64,
+                  vq_kmeans: 2, num_quantizers: 1}}
+    backbone:
+      class_path: decoder.models.VocosBackbone
+      init_args: {{input_channels: 512, dim: 64, intermediate_dim: 192, num_layers: 1,
+                  adanorm_num_embeddings: 4}}
+    head:
+      class_path: decoder.heads.ISTFTHead
+      init_args: {{dim: 64, n_fft: 128, hop_length: 32, padding: same}}
+data:
+  class_path: decoder.dataset.VocosDataModule
+  init_args:
+    train_params: {{filelist_path: {filelist}, sampling_rate: 24000, num_samples: 3840,
+                   batch_size: 2, num_workers: 0}}
+trainer:
+  max_steps: 1000
+"""
+
+
+def test_train_cli_runs_repeat_bit_for_bit(cuda, tmp_path):
+    """Two ``tools.train fit`` processes from one seed, at PyTorch's default
+    precision (cuDNN TF32 on), write equal ``last.pt`` files, tensor for
+    tensor: the trainer runs its steps under ``repeatable_steps``."""
+    import os
+    import subprocess
+    import sys
+
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(0)
+    files = []
+    for i in range(4):
+        y = 0.3 * np.sin(2 * np.pi * (200 + 37 * i) * np.arange(4800) / 24000) \
+            + 0.02 * rng.normal(size=4800)
+        files.append(str(tmp_path / f"clip{i}.wav"))
+        wavfile.write(files[-1], 24000, (y * 32767).astype(np.int16))
+    (tmp_path / "files.txt").write_text("\n".join(files) + "\n")
+    cfg = tmp_path / "train.yaml"
+    cfg.write_text(CLI_YAML.format(filelist=tmp_path / "files.txt"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = [tmp_path / f"run{i}" for i in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-m", "wavtokenizer_tpu_torch.tools.train", "fit",
+                               "--config", str(cfg), "--out-dir", str(run), "--max-batches", "2"],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for run in runs]
+    for proc in procs:
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+    a, b = (torch.load(run / "last.pt", map_location="cpu", weights_only=True) for run in runs)
+    assert a["step"] == b["step"] == 2
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return [kv for k in sorted(tree, key=str) for kv in leaves(tree[k], f"{path}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [kv for i, v in enumerate(tree) for kv in leaves(v, f"{path}/{i}")]
+        return [(path, tree)]
+
+    la, lb = leaves(a), leaves(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y, path
 
 
 # ---------------------------------------------------------------------------

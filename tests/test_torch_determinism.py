@@ -411,6 +411,28 @@ def test_codebook_train_forward_bit_equal_to_before():
         assert torch.equal(new[k], v), k
 
 
+def test_forward_without_expiry_draws_what_it_drew_before():
+    """The default forward (no ``effective_expiry``) draws from the step's
+    generator k-means' initial means alone, one draw a layer: the
+    generator's state after it, and each layer's new state, are those of
+    the forward before the option was ported (k-means, then the EMA)."""
+    cfg = VQConfig(dimension=8, bins=32, kmeans_iters=3, n_q=2)
+    x = torch.from_numpy(_rows(200, 8, 9))
+    params = {"embed": torch.zeros(2, 32, 8), "embed_avg": torch.zeros(2, 32, 8),
+              "cluster_size": torch.zeros(2, 32), "inited": torch.zeros(2, 1)}
+    g = torch.Generator().manual_seed(4)
+    _, _, _, new = tv.vq_train_forward(params, cfg, x.reshape(2, 100, 8), generator=g)
+    before = torch.Generator().manual_seed(4)
+    for q in range(2):
+        means = x[tv.sample_indices(200, 32, before)]
+        means, bins, _ = _kmeans_before(x, 32, 3, means)
+        _, _, want = _ema_before({"embed": means, "embed_avg": means,
+                                  "cluster_size": bins.float()}, cfg, x)
+        for k, v in want.items():
+            assert torch.equal(new[k][q], v), (q, k)
+    assert torch.equal(g.get_state(), before.get_state())
+
+
 @pytest.mark.parametrize("n_fft,hop,win,kind,center", [
     (1024, 256, 1024, "hann", True),     # the mel loss
     (2048, 512, 2048, "ones", True),     # a resolution discriminator

@@ -49,6 +49,7 @@ from wavtokenizer_tpu_torch.train import step as ts
 from wavtokenizer_tpu_torch.train import trainer as trainer_mod
 from wavtokenizer_tpu_torch.train.data import DataConfig
 from wavtokenizer_tpu_torch.train.helpers import TBLogger
+from wavtokenizer_tpu_torch.train.vq_train import vq_train_forward
 
 TINY = dict(seanet=dict(dimension=16, n_filters=2, ratios=(8, 5, 4, 2)),
             vq=dict(dimension=16, bins=32, kmeans_iters=2),
@@ -129,6 +130,26 @@ def tp_decode(mesh) -> dict:
             "w1_cols": params["backbone"]["convnext"][0]["w1"].shape[1]}
 
 
+EXPIRY_CFG = VQConfig(dimension=16, bins=32, kmeans_iters=2, n_q=2)
+
+
+def expiry_forward(mesh, effective_expiry: bool = True) -> tuple:
+    """One ``effective_expiry`` forward of two un-inited layers (k-means on
+    the gathered rows, then the dead codes' replacement rows drawn from
+    them) on this rank's rows of a float64 global batch of 8 x 8 frames:
+    (codes, new VQ state)."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(GLOBAL_B, 8, 16)))
+    params = {"embed": torch.zeros(2, 32, 16, dtype=torch.float64),
+              "embed_avg": torch.zeros(2, 32, 16, dtype=torch.float64),
+              "cluster_size": torch.zeros(2, 32, dtype=torch.float64),
+              "inited": torch.zeros(2, 1, dtype=torch.float64)}
+    shard = M.batch_shard(mesh, GLOBAL_B)
+    _, codes, _, new = vq_train_forward(params, EXPIRY_CFG, x[shard.start:shard.stop],
+                                        generator=torch.Generator().manual_seed(7),
+                                        group=shard.group, effective_expiry=effective_expiry)
+    return codes.numpy(), {k: v.numpy() for k, v in new.items()}
+
+
 def make_trainer(out_dir: str, filelist: str, mesh=None) -> trainer_mod.Trainer:
     data = DataConfig(filelist_path=filelist, num_samples=3840, batch_size=4)
     return trainer_mod.Trainer(TSPEC, TRAIN_CFG, data, data, out_dir=out_dir, seed=11,
@@ -148,7 +169,7 @@ def _rank_main(rank: int, port: int, out: str, filelist: str) -> None:
         pairs = M.make_mesh(1, "cpu", ranks=(0, 1)), M.make_mesh(2, "cpu", ranks=(2, 3))
         pair = pairs[rank // 2]
         res = {"dp": run_steps(dp4), "tp": run_steps(tp22), "decode": tp_decode(tp22),
-               "coords": (tp22.data_rank, tp22.model_rank)}
+               "coords": (tp22.data_rank, tp22.model_rank), "expiry": expiry_forward(dp4)}
         name = "dp2" if rank < 2 else "tp2"
         tr = make_trainer(os.path.join(out, name), filelist, pair)
         tr.fit(max_batches=2)
@@ -265,6 +286,23 @@ def test_dp4_steps_equal_one_process_on_the_global_batch(ranks, one_process):
     results, _ = ranks
     for r in range(WORLD):
         _assert_states_close(results[r]["dp"], one_process)
+
+
+def test_dp4_effective_expiry_equals_one_process(ranks):
+    """``effective_expiry`` over DP-4: every rank replaces the same dead
+    codes with the same rows of the global batch, so its codes are its rows
+    of the one-process codes and its VQ state the one-process state (the
+    EMA's sums summed over the ranks, in another order: 1e-9 of the scale)."""
+    results, _ = ranks
+    codes, want = expiry_forward(None)
+    _, without = expiry_forward(None, effective_expiry=False)
+    assert not np.array_equal(want["embed_avg"], without["embed_avg"])    # codes expired
+    per = GLOBAL_B // WORLD
+    for r in range(WORLD):
+        got_codes, got = results[r]["expiry"]
+        np.testing.assert_array_equal(got_codes, codes[:, r * per:(r + 1) * per])
+        for k, v in want.items():
+            assert np.abs(got[k] - v).max() <= 1e-9 * max(np.abs(v).max(), 1.0), (r, k)
 
 
 def test_tp_steps_equal_dp4(ranks):

@@ -140,3 +140,71 @@ def test_n_q_2_of_3_layers_matches_jax():
     for k in new_j:
         _close(new_t[k].numpy(), np.asarray(new_j[k]))
         np.testing.assert_array_equal(new_t[k][2].numpy(), params[k][2])
+
+
+def _expired_codes(cluster_size, threshold):
+    return int((np.asarray(cluster_size) < threshold).sum())
+
+
+@pytest.mark.parametrize("case", ["inited, some expired", "inited, none expired",
+                                  "un-inited, some expired", "un-inited, none expired",
+                                  "n_q 2 of 3 layers"])
+def test_effective_expiry_matches_jax(case, monkeypatch):
+    """``effective_expiry``: the codes whose cluster size lies below the
+    threshold before the EMA (k-means' counts on an un-inited layer) restart
+    from rows of the batch.  JAX's draws (``k_init`` for k-means' means,
+    ``k_expire`` for the replacement rows) are injected: the port's
+    generator draws other indices.  Ids equal; quantized rows and state
+    within the file's tolerance; the ids and quantized rows are those of the
+    forward without the option."""
+    rng = np.random.default_rng(11)
+    threshold = 0 if case.endswith("none expired") else 2
+    cfg_kw = dict(dimension=8, bins=16, kmeans_iters=4, threshold_ema_dead_code=threshold)
+    x = rng.normal(size=(60, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    draw = lambda k: x[_jax_sample_indices(k, 60, 16)]
+    if case.startswith("n_q"):
+        cfg_kw["n_q"] = 3
+        params = _vq_params(rng, 3, 16, 8)
+        qj, cj, lj, new_j = jv.vq_train_forward(jax.tree.map(jnp.asarray, params),
+                                                JVQConfig(**cfg_kw), jnp.asarray(x[None]),
+                                                key, n_q=2, effective_expiry=True)
+        draws = [torch.from_numpy(draw(jax.random.split(k)[1]))
+                 for k in jax.random.split(key, 2)]
+        monkeypatch.setattr(tv, "sample_vectors", lambda samples, num, generator: draws.pop(0))
+        tp = {k: torch.from_numpy(v) for k, v in params.items()}
+        qt, ct, lt, new_t = tv.vq_train_forward(tp, VQConfig(**cfg_kw), torch.from_numpy(x[None]),
+                                                n_q=2, effective_expiry=True)
+        assert draws == []                               # one draw a layer, in layer order
+        assert sum(_expired_codes(params["cluster_size"][q], threshold) for q in range(2)) > 0
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+        assert abs(float(lt) - float(lj)) <= 1e-5 * float(lj)
+        _close(qt.numpy(), np.asarray(qj))
+        for k in new_j:
+            _close(new_t[k].numpy(), np.asarray(new_j[k]))
+            np.testing.assert_array_equal(new_t[k][2].numpy(), params[k][2])
+        plain = tv.vq_train_forward(tp, VQConfig(**cfg_kw), torch.from_numpy(x[None]), n_q=2)
+        assert torch.equal(plain[0], qt) and torch.equal(plain[1], ct)
+        assert torch.equal(plain[2], lt)
+        return
+    inited = case.startswith("inited")
+    st = _layer_state(rng, 16, 8, inited)
+    qj, idx_j, new_j = jv._codebook_train_forward(jax.tree.map(jnp.asarray, st),
+                                                  JVQConfig(**cfg_kw), jnp.asarray(x), key,
+                                                  effective_expiry=True)
+    k_init, k_expire = jax.random.split(key)
+    init_means = None if inited else torch.from_numpy(draw(k_init))
+    args = ({k: torch.from_numpy(v) for k, v in st.items()}, VQConfig(**cfg_kw),
+            torch.from_numpy(x))
+    qt, idx_t, new_t = tv.codebook_train_forward(*args, init_means=init_means,
+                                                 effective_expiry=True,
+                                                 expiry_rows=torch.from_numpy(draw(k_expire)))
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    _close(qt.numpy(), np.asarray(qj))
+    for k in new_j:
+        _close(new_t[k].numpy(), np.asarray(new_j[k]))
+    # The counts the expiry reads: the state's, or k-means' on the first batch.
+    before = st["cluster_size"] if inited else tv.kmeans(args[2], 16, 4, means=init_means)[1]
+    assert (_expired_codes(before, threshold) > 0) == case.endswith("some expired")
+    q0, idx0, _ = tv.codebook_train_forward(*args, init_means=init_means)
+    assert torch.equal(q0, qt) and torch.equal(idx0, idx_t)

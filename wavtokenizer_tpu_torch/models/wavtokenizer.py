@@ -40,12 +40,46 @@ class WavTokenizerSpec:
         return math.ceil(self.sample_rate / self.hop_length)
 
 
-_FP32_LOCK = threading.Lock()
-_fp32_depth = 0          # callers inside full_fp32, all threads
-_fp32_saved = None       # (cudnn, matmul) flags of the first one in
+class _SharedFlags:
+    """Process-global backend flags, set for the callers inside a ``with``
+    and back to the callers' settings once the last one has left.
+
+    Concurrent callers (a serving engine's worker beside direct callers, a
+    training loop beside an encode) share one depth count under a lock: the
+    first to enter saves the flags and sets them, the last to leave restores
+    them.  Saving and restoring per caller would let one thread restore a
+    flag while another is still inside."""
+
+    def __init__(self, *settings):
+        self._settings = settings      # (namespace, attribute, value) each
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = [getattr(ns, name) for ns, name, _ in self._settings]
+                for ns, name, value in self._settings:
+                    setattr(ns, name, value)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    for (ns, name, _), value in zip(self._settings, self._saved):
+                        setattr(ns, name, value)
 
 
-@contextlib.contextmanager
+_TF32_OFF = _SharedFlags((torch.backends.cudnn, "allow_tf32", False),
+                         (torch.backends.cuda.matmul, "allow_tf32", False))
+_REPEATABLE = _SharedFlags((torch.backends.cudnn, "deterministic", True),
+                           (torch.backends.cudnn, "benchmark", False))
+
+
 def full_fp32():
     """TF32 off for both cuBLAS matmuls and cuDNN (convolutions, LSTM), and
     back to the callers' settings once the last caller has left.
@@ -56,27 +90,32 @@ def full_fp32():
     same trap flipped 23/960 small600 tokens on the TPU before its encoder
     convs were pinned to fp32-equivalent precision).
 
-    The flags are process-global, so concurrent callers (a serving engine's
-    worker beside direct callers) share one depth count under a lock: the
-    first to enter saves the flags and turns TF32 off, the last to leave
-    restores them.  Saving and restoring per caller would let one thread
-    turn TF32 back on while another is still encoding."""
-    global _fp32_depth, _fp32_saved
-    with _FP32_LOCK:
-        if _fp32_depth == 0:
-            _fp32_saved = (torch.backends.cudnn.allow_tf32,
-                           torch.backends.cuda.matmul.allow_tf32)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        _fp32_depth += 1
-    try:
-        yield
-    finally:
-        with _FP32_LOCK:
-            _fp32_depth -= 1
-            if _fp32_depth == 0:
-                (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32) = _fp32_saved
+    The flags are process-global, so concurrent callers share one depth
+    count (``_SharedFlags``)."""
+    return _TF32_OFF()
+
+
+def repeatable_steps():
+    """cuDNN's deterministic algorithms (``cudnn.deterministic`` on,
+    ``cudnn.benchmark`` off) for the training steps inside, and back to the
+    callers' settings once the last caller has left; TF32 is left as it is.
+
+    The JAX step is one XLA program and repeats run for run.  On the card a
+    step repeats bit for bit only when no kernel sums in an order that
+    changes from run to run: the port's own sums do without float atomics
+    (the VQ's segment sums, the STFT's backward), and cuDNN's deterministic
+    algorithms cover its convolutions' and LSTM's backward.  Without them
+    two runs from one seed differ by ~1e-7 in the gradients from the first
+    step on, and VQ near-ties turn that into other codes.  Every trainer
+    (``train/trainer.py::Trainer.fit``, ``tools/enhance_train.py``,
+    ``tools/byol_train.py``) runs its steps inside; there is no switch, as
+    the JAX step has none.
+
+    ``torch.use_deterministic_algorithms`` is not set: the steps repeat
+    without it, and it raises on ops that have no deterministic form.
+    The flags are process-global: concurrent callers share one depth count
+    (``_SharedFlags``)."""
+    return _REPEATABLE()
 
 
 @torch.inference_mode()

@@ -96,6 +96,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..checkpoint.convert import byol_from_jax
+    from ..models.wavtokenizer import repeatable_steps
     from ..research.byol import BYOLConfig, init_byol, simple_transformer
     from ..train.step import tree_leaves
     from ..train.trainer import save_tree
@@ -123,7 +124,8 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "metrics.jsonl"), "a") as logf:
+    # Every step repeats run for run (no switch).
+    with open(os.path.join(args.out_dir, "metrics.jsonl"), "a") as logf, repeatable_steps():
         for s in range(args.steps):
             if xv is not None:
                 v1, v2, _ = xv.batch(rng, args.batch_size)

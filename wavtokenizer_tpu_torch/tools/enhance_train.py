@@ -74,6 +74,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..checkpoint.convert import adapter_from_jax, inpath_transformer_from_jax
+    from ..models.wavtokenizer import repeatable_steps
     from ..research.adapter import (base_params_from_jax, init_adapter,
                                     init_inpath_transformer, load_byol_transformer)
     from ..research.enhance import (EnhanceConfig, PairedAudioDataset, enhance_step,
@@ -122,7 +123,8 @@ def main(argv=None):
 
     best = float("inf")
     t0 = time.time()
-    with open(os.path.join(args.out_dir, "metrics.jsonl"), "a") as logf:
+    # Every step repeats run for run (no switch).
+    with open(os.path.join(args.out_dir, "metrics.jsonl"), "a") as logf, repeatable_steps():
         for step in range(start_step, args.steps):
             noisy, clean = (torch.from_numpy(a).to(device) for a in next(it))
             adapter_state, loss, _ = enhance_step(

@@ -42,7 +42,7 @@ import torch
 from ..api.config import spec_from_config_dict
 from ..api.pretrained import WavTokenizer
 from ..checkpoint.convert import surgical_resume_params
-from ..models.wavtokenizer import WavTokenizerSpec
+from ..models.wavtokenizer import WavTokenizerSpec, repeatable_steps
 from ..parallel.mesh import (barrier, batch_shard, gather_train_state, init_distributed,
                              make_mesh, replicate_train_state, shard_train_state,
                              world_size_from_env)
@@ -441,29 +441,31 @@ class Trainer:
             val_iter = data_loader(WavDataset(self.val_data, train=False),
                                    self.val_data.batch_size, shuffle=False, seed=self.seed)
         t_last = time.time()
-        for step in range(start, total):
-            batch = self._pad_batch(next(train_iter))
-            # Multi-quantizer configs draw n_q from [4, 6, 8] per step (ref
-            # vq.py:103-108); the shipped n_q = 1 models use 1.
-            n_q = (min(int(np.random.default_rng((self.seed + 1, step)).choice([4, 6, 8])),
-                       spec.vq.n_q) if spec.vq.n_q > 1 else 1)
-            # Every rank holds the global batch; it trains on its own rows.
-            shard = batch_shard(mesh, len(batch), self.log)
-            state, metrics = train_step(
-                state, self._audio(batch[shard.start:shard.stop]), spec, tcfg,
-                step_generator(self.seed, step), mel_coeff=mel_coeff_decay(tcfg, step + 1),
-                train_discriminator=step >= tcfg.pretrain_mel_steps, n_q=n_q,
-                with_grad_norm=step % self.log_every == 0, shard=shard)
-            if step % self.log_every == 0:
-                rec = {"step": step, **{k: float(v) for k, v in metrics.items()},
-                       "sec_per_step": (time.time() - t_last) / max(1, self.log_every)}
-                t_last = time.time()
-                self.log(rec)
-                self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
-            if step > 0 and step % self.log_media_every == 0:
-                self._log_train_media(state, batch, step)
-            if val_iter is not None and step > 0 and step % self.val_every == 0:
-                self._save(state, step, self._validate(state, val_iter, step))
+        # Every step repeats run for run, as the JAX step does (no switch).
+        with repeatable_steps():
+            for step in range(start, total):
+                batch = self._pad_batch(next(train_iter))
+                # Multi-quantizer configs draw n_q from [4, 6, 8] per step (ref
+                # vq.py:103-108); the shipped n_q = 1 models use 1.
+                n_q = (min(int(np.random.default_rng((self.seed + 1, step)).choice([4, 6, 8])),
+                           spec.vq.n_q) if spec.vq.n_q > 1 else 1)
+                # Every rank holds the global batch; it trains on its own rows.
+                shard = batch_shard(mesh, len(batch), self.log)
+                state, metrics = train_step(
+                    state, self._audio(batch[shard.start:shard.stop]), spec, tcfg,
+                    step_generator(self.seed, step), mel_coeff=mel_coeff_decay(tcfg, step + 1),
+                    train_discriminator=step >= tcfg.pretrain_mel_steps, n_q=n_q,
+                    with_grad_norm=step % self.log_every == 0, shard=shard)
+                if step % self.log_every == 0:
+                    rec = {"step": step, **{k: float(v) for k, v in metrics.items()},
+                           "sec_per_step": (time.time() - t_last) / max(1, self.log_every)}
+                    t_last = time.time()
+                    self.log(rec)
+                    self.tb.scalars({k: v for k, v in rec.items() if k != "step"}, step)
+                if step > 0 and step % self.log_media_every == 0:
+                    self._log_train_media(state, batch, step)
+                if val_iter is not None and step > 0 and step % self.val_every == 0:
+                    self._save(state, step, self._validate(state, val_iter, step))
         self._save(state)
         return state
 

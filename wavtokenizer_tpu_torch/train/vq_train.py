@@ -35,11 +35,20 @@ batch's order, on every rank with the same generator, so that every rank
 derives the same means (each rank's searches run on its own card).  With one
 rank nothing changes.
 
-Dead-code expiry (ref core_vq.py:159-169) is not computed: in the reference
-its write to ``embed`` is overwritten by the EMA normalization at the end of
-the same forward (the quirk the JAX package reproduces by default), so it
-cannot change the state.  The JAX package's ``effective_expiry`` option,
-which no caller of its train step sets, is not ported.
+Dead-code expiry (ref core_vq.py:159-169) is computed only with
+``effective_expiry``.  In the reference its write to ``embed`` is
+overwritten by the EMA normalization at the end of the same forward (the
+quirk the JAX package reproduces by default), so by default it cannot change
+the state and is not computed, and no replacement rows are drawn.  With
+``effective_expiry`` (the JAX package's option, the fixed behaviour; no
+caller of the train step sets it) the codes whose ``cluster_size`` lies
+below ``threshold_ema_dead_code`` before the EMA (k-means' counts on the
+first batch) take rows drawn from the batch as their ``embed_avg`` and the
+threshold as their ``cluster_size``, and the EMA then runs over them.  The
+draw comes from the layer's generator after its k-means draw (JAX's split
+order, ``k_init`` then ``k_expire``), over the all-gathered rows under
+``group``, so every rank replaces the same codes with the same rows.  The
+ids, the quantized rows and the commitment loss do not depend on it.
 """
 
 from __future__ import annotations
@@ -102,7 +111,9 @@ def laplace_smoothing(x: torch.Tensor, n_categories: int, epsilon: float = 1e-5)
 @torch.no_grad()
 def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
                            generator: torch.Generator | None = None,
-                           init_means: torch.Tensor | None = None, group=None):
+                           init_means: torch.Tensor | None = None, group=None,
+                           effective_expiry: bool = False,
+                           expiry_rows: torch.Tensor | None = None):
     """One EuclideanCodebook training forward (ref core_vq.py:206-231) for
     ONE layer.  state: {embed (C, D), embed_avg, cluster_size (C,), inited
     (1,)}; x_flat (N, D), detached, this rank's rows when ``group`` splits
@@ -113,19 +124,33 @@ def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
     k-means' last assignment, the same search on the same rows and means, so
     that search is not run twice: kmeans_iters + 1 searches on the first
     batch, 1 after.  The counts and sums of the EMA update are summed over
-    ``group``."""
+    ``group``.  ``effective_expiry`` replaces the dead codes' EMA state
+    before the update (the module's docstring) with ``expiry_rows`` (C, D)
+    where given (a test's injection, as ``init_means``), else with rows drawn
+    by ``sample_vectors``."""
     C = cfg.bins
+    x_all = None
     if float(state["inited"].reshape(())) > 0:
         embed, embed_avg = state["embed"], state["embed_avg"]
         cluster_size = state["cluster_size"]
         idx = nearest_codebook_indices(x_flat, embed).long()
     else:
-        embed, bins, idx = kmeans(all_gather(x_flat, group), C, cfg.kmeans_iters, generator,
-                                  init_means)
+        x_all = all_gather(x_flat, group)
+        embed, bins, idx = kmeans(x_all, C, cfg.kmeans_iters, generator, init_means)
         n = x_flat.shape[0]
         idx = idx[group_rank(group) * n:(group_rank(group) + 1) * n]
         embed_avg, cluster_size = embed, bins.to(x_flat.dtype)
     quantized = codebook_lookup(idx, embed)
+
+    if effective_expiry:
+        expired = cluster_size < cfg.threshold_ema_dead_code
+        if expiry_rows is None:
+            x_all = all_gather(x_flat, group) if x_all is None else x_all
+            expiry_rows = sample_vectors(x_all, C, generator)
+        embed_avg = torch.where(expired[:, None], expiry_rows, embed_avg)
+        cluster_size = torch.where(
+            expired, torch.full_like(cluster_size, float(cfg.threshold_ema_dead_code)),
+            cluster_size)
 
     decay = cfg.decay
     bins = torch.bincount(idx, minlength=C)
@@ -142,7 +167,8 @@ def codebook_train_forward(state: dict, cfg, x_flat: torch.Tensor,
 
 
 def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
-                     generator: torch.Generator | None = None, group=None):
+                     generator: torch.Generator | None = None, group=None,
+                     effective_expiry: bool = False):
     """LanguageVectorQuantization training forward (ref core_vq.py:378-401,
     VectorQuantization.forward :294-315).
 
@@ -153,7 +179,9 @@ def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
     layers.  Returns (q_st (B, T, D), codes (n_q, B, T) int32, commit, new params);
     layers >= n_q keep their state.  ``group``: the data group that splits
     the batch (``codebook_train_forward``); the commitment loss stays this
-    rank's mean, which the step's gradient and metric reductions average."""
+    rank's mean, which the step's gradient and metric reductions average.
+    ``effective_expiry``: each layer's dead codes are replaced
+    (``codebook_train_forward``), the layers' draws in layer order."""
     n_q = min(n_q or cfg.n_q, cfg.n_q)
     B, T, D = x.shape
     x_flat = x.reshape(B * T, D)
@@ -162,8 +190,8 @@ def vq_train_forward(params: dict, cfg, x: torch.Tensor, n_q: int | None = None,
     q_st = None
     for q in range(n_q):
         layer = {k: v[q] for k, v in params.items()}
-        quantized, idx, new_layer = codebook_train_forward(layer, cfg, x_det, generator,
-                                                           group=group)
+        quantized, idx, new_layer = codebook_train_forward(
+            layer, cfg, x_det, generator, group=group, effective_expiry=effective_expiry)
         q_st = x_flat + (quantized - x_flat).detach()
         losses.append(((q_st.detach() - x_flat) ** 2).mean() * cfg.commitment_weight)
         codes.append(idx.reshape(B, T).to(torch.int32))
